@@ -1,0 +1,422 @@
+"""GRE BSP engine on PyTorch: executes VertexPrograms in supersteps (paper
+Alg. 2).
+
+There is ONE canonical superstep, parameterized by an exchange backend
+(`repro_torch.core.exchange`; the single-shard `NullExchange` here):
+
+  refresh          — push master scatter state to remote readers (identity
+      on a single shard);
+  scatter-combine  — every scatter-active vertex emits active messages along
+      its out-edges and the messages are ⊕-combined at their destinations
+      (one gather → message → segment-reduce, no edge-state storage);
+  apply            — every vertex whose combine_data changed recomputes
+      vertex_data and decides whether to stay scatter-active.
+
+HOW a run executes (which frontier strategy scans the edges) is a
+`SuperstepPlan` (`repro_torch.core.plan`), driven by ONE loop,
+`plan.execute_plan`.  The ⊕ runs the hand-written CUDA kernel when the
+partition lies on the card and the plain PyTorch version when it lies on
+the CPU (`repro_torch.kernels.ops`).
+
+Entry points run on CUDA unless the caller passes `device="cpu"`; asked for
+CUDA with no card present they raise.  The engine takes its device from the
+partition's tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.exchange import NULL_EXCHANGE
+from repro_torch.core.plan import SuperstepPlan, execute_plan, execute_superstep
+from repro_torch.core.vertex_program import VertexProgram, segment_combine
+from repro_torch.graph.structures import (DEFAULT_BUCKET_BOUNDS, csr_layout,
+                                          degree_buckets, pad_edges,
+                                          sort_edges_by_dst)
+from repro_torch.kernels.segment_combine import segment_row_pointer
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """`torch.device(device)`, refusing CUDA when no card is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda.is_available()"
+                           " is False; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _to(arr, device: torch.device) -> torch.Tensor:
+    # copies only arrays torch cannot wrap (read-only or strided)
+    return torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(device)
+
+
+@dataclasses.dataclass
+class DevicePartition:
+    """Static per-shard topology (column storage, local 32-bit ids).
+
+    `num_slots` = masters + 1 padding sink; padded edges point at the sink
+    so combines on padding never touch real state.  `seg_ptr` is the row
+    pointer of the dst-sorted columns (`segment_row_pointer`), built once
+    at ingress for the combine kernel's dense route; None when the edges
+    are not sorted by dst.
+    """
+
+    src: torch.Tensor             # [E_pad] int32 local src slot
+    dst: torch.Tensor             # [E_pad] int32 local dst slot
+    edge_mask: torch.Tensor       # [E_pad] bool, False on padding
+    num_masters: int
+    num_slots: int
+    edges_sorted_by_dst: bool
+    edge_props: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    aux: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # Src-sorted CSR secondary index (graph.structures.csr_layout), the
+    # substrate of frontier compaction.  None disables compaction.
+    csr_indptr: Optional[torch.Tensor] = None   # [num_slots + 1] int32
+    csr_eidx: Optional[torch.Tensor] = None     # [E_pad] pos in dst-sorted cols
+    csr_max_deg: int = 0
+    # Degree-bucket binning (graph.structures.degree_buckets).
+    bucket_id: Optional[torch.Tensor] = None    # [num_slots] int32, -1 = deg 0
+    bucket_sizes: tuple = ()
+    bucket_max_deg: tuple = ()
+    seg_ptr: Optional[torch.Tensor] = None      # [num_slots + 1] int32
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+    @staticmethod
+    def from_graph(graph, pad_to: Optional[int] = None,
+                   sort_by_dst: bool = True, transpose: bool = False,
+                   bucket_bounds: Optional[tuple] = None,
+                   device="cuda") -> "DevicePartition":
+        """Whole graph on one shard (slots = V + sink), built on the host
+        and moved to `device`.
+
+        `transpose=True` builds the partition of the reversed graph;
+        `bucket_bounds` overrides the default degree-bucket ladder.
+        """
+        dev = resolve_device(device)
+        if transpose:
+            graph = graph.reversed()
+        src, dst, props = graph.src, graph.dst, dict(graph.edge_props)
+        if sort_by_dst:
+            src, dst, props, _ = sort_edges_by_dst(src, dst, props)
+        v = graph.num_vertices
+        e_pad = pad_to or graph.num_edges
+        psrc, pdst, mask = pad_edges(src, dst, e_pad, pad_vertex=v)
+        props = {k: np.pad(p, (0, e_pad - graph.num_edges))
+                 for k, p in props.items()}
+        out_deg = graph.out_degree().astype(np.float32)
+        indptr, eidx, max_deg = csr_layout(psrc, mask, v + 1)
+        bucket_id, sizes, max_degs = degree_buckets(
+            indptr, v + 1, bounds=tuple(bucket_bounds or
+                                        DEFAULT_BUCKET_BOUNDS))
+        arrays = {"src": psrc, "dst": pdst, "edge_mask": mask,
+                  "edge_props": props,
+                  "aux": {"out_degree": out_deg,
+                          "global_id": np.arange(v, dtype=np.float32)},
+                  "csr_indptr": indptr, "csr_eidx": eidx,
+                  "bucket_id": bucket_id}
+        statics = {"num_masters": v, "num_slots": v + 1,
+                   "edges_sorted_by_dst": sort_by_dst,
+                   "csr_max_deg": max_deg, "bucket_sizes": sizes,
+                   "bucket_max_deg": max_degs}
+        return DevicePartition.from_arrays(arrays, statics, device=dev)
+
+    @staticmethod
+    def from_arrays(arrays: Dict[str, object], statics: Dict[str, object],
+                    device="cuda") -> "DevicePartition":
+        """Build a partition from host arrays: `arrays` holds `src`, `dst`,
+        `edge_mask`, `csr_indptr`, `csr_eidx`, `bucket_id` (each may be
+        None) and the dicts `edge_props` and `aux`, e.g. `np.asarray` of
+        every field of a JAX-package `DevicePartition`; `statics` holds
+        `num_masters`, `num_slots`, `edges_sorted_by_dst`, `csr_max_deg`,
+        `bucket_sizes` and `bucket_max_deg`.  Adds the row pointer."""
+        dev = resolve_device(device)
+
+        def opt(key):
+            a = arrays.get(key)
+            return None if a is None else _to(a, dev)
+
+        part = DevicePartition(
+            src=opt("src"), dst=opt("dst"), edge_mask=opt("edge_mask"),
+            num_masters=int(statics["num_masters"]),
+            num_slots=int(statics["num_slots"]),
+            edges_sorted_by_dst=bool(statics["edges_sorted_by_dst"]),
+            edge_props={k: _to(a, dev)
+                        for k, a in (arrays.get("edge_props") or {}).items()},
+            aux={k: _to(a, dev) for k, a in (arrays.get("aux") or {}).items()},
+            csr_indptr=opt("csr_indptr"), csr_eidx=opt("csr_eidx"),
+            csr_max_deg=int(statics.get("csr_max_deg", 0)),
+            bucket_id=opt("bucket_id"),
+            bucket_sizes=tuple(int(s) for s in statics.get("bucket_sizes", ())),
+            bucket_max_deg=tuple(int(d) for d in
+                                 statics.get("bucket_max_deg", ())))
+        if part.edges_sorted_by_dst:
+            part.seg_ptr = segment_row_pointer(part.dst, part.num_slots)
+        return part
+
+
+@dataclasses.dataclass
+class EngineState:
+    """Runtime vertex states (paper §6.1.3), flat columns per slot.
+
+    `step` is the superstep counter, kept on the host (the loop's halt test
+    reads it every superstep).  `lane_active` is the optional per-lane halt
+    tracker (`[D]` bool) of multi-source programs.
+    """
+
+    vertex_data: torch.Tensor     # [num_masters, *V]
+    scatter_data: torch.Tensor    # [num_slots, *S]
+    active_scatter: torch.Tensor  # [num_slots] bool
+    step: int = 0
+    lane_active: Optional[torch.Tensor] = None  # [D] bool
+
+    @staticmethod
+    def from_arrays(arrays: Dict[str, object], device="cuda") -> "EngineState":
+        """Build a state from host arrays (`vertex_data`, `scatter_data`,
+        `active_scatter`, `step`, optional `lane_active`), e.g. `np.asarray`
+        of every field of a JAX-package `EngineState`."""
+        dev = resolve_device(device)
+        lane = arrays.get("lane_active")
+        return EngineState(
+            vertex_data=_to(arrays["vertex_data"], dev),
+            scatter_data=_to(arrays["scatter_data"], dev),
+            active_scatter=_to(arrays["active_scatter"], dev),
+            step=int(np.asarray(arrays.get("step", 0))),
+            lane_active=None if lane is None else _to(lane, dev))
+
+
+def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Reshape a `[n]` mask to broadcast against `[n, *payload]`."""
+    return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
+
+
+class GREEngine:
+    """Drives a VertexProgram over one DevicePartition.
+
+    `frontier` selects the scatter strategy (core/frontier.py):
+
+      "auto"    — per superstep: dense scan when the frontier is large,
+                  degree-bucketed compacted gather when it fits; statically
+                  dense where even the worst-case bucket tiles would
+                  out-scan the dense path;
+      "compact" — always attempt bucketed compaction (per-bucket overflow
+                  still degrades an overflowing bucket to a restricted
+                  dense scan);
+      "flat"    — one padded `[cap, max_deg]` tile over the whole frontier;
+      "dense"   — the every-edge masked scan.
+
+    Engines in `dense_frontier` mode (iterative programs like PageRank,
+    where every vertex stays active) always take the dense path, unmasked.
+    """
+
+    FRONTIERS = ("auto", "dense", "compact", "flat")
+
+    def __init__(self, program: VertexProgram,
+                 dense_frontier: Optional[bool] = None,
+                 frontier: str = "auto", frontier_cap: Optional[int] = None):
+        if frontier not in self.FRONTIERS:
+            raise ValueError(f"frontier must be one of {self.FRONTIERS}, "
+                             f"got {frontier!r}")
+        self.program = program
+        self.frontier = frontier
+        self.frontier_cap = frontier_cap
+        # Iterative programs (halts=False) keep every vertex active, so
+        # per-edge activity masks are pure overhead; the sink slot's
+        # scatter_data is pinned to the identity so padded edges still
+        # contribute nothing.
+        self.dense_frontier = (dense_frontier if dense_frontier is not None
+                               else not program.halts)
+        self.frontier_hist = None   # set by calibrate_frontier_cap
+
+    def make_plan(self, phases: str = "sync") -> SuperstepPlan:
+        """The engine's SuperstepPlan, rebuilt on demand so
+        `calibrate_frontier_cap`'s capacity update is honored."""
+        return SuperstepPlan(strategy=self.frontier,
+                             frontier_cap=self.frontier_cap,
+                             dense_frontier=self.dense_frontier,
+                             phases=phases)
+
+    def calibrate_frontier_cap(self, part: DevicePartition,
+                               state: EngineState, probe_steps: int = 2
+                               ) -> list:
+        """Derive `frontier_cap` from the live frontier sizes of the first
+        superstep(s) instead of a fixed fraction of `num_slots`.  `state`
+        is not consumed.  Returns the histogram (also `frontier_hist`)."""
+        from repro_torch.core.frontier import default_cap
+        self.frontier_hist = self.probe_frontier_hist(part, state,
+                                                      probe_steps)
+        self.frontier_cap = default_cap(part.num_slots,
+                                        frontier_hist=self.frontier_hist)
+        return self.frontier_hist
+
+    def probe_frontier_hist(self, part: DevicePartition, state: EngineState,
+                            probe_steps: int = 2) -> list:
+        """Run up to `probe_steps` dense supersteps from `state` and return
+        the live frontier sizes `[|F_0|, |F_1|, ...]`."""
+        probe = GREEngine(self.program, dense_frontier=self.dense_frontier,
+                          frontier="dense")
+        hist, s = [], state
+        for _ in range(probe_steps):
+            n = int(s.active_scatter.sum())
+            if n == 0:
+                break
+            hist.append(n)
+            s = probe.superstep(part, s)
+        return hist
+
+    # ------------------------------------------------------------------ init
+    def init_state(self, part: DevicePartition, source=None,
+                   lane_tracking: bool = False) -> EngineState:
+        """`source` may be a single vertex id, or, for multi-source programs
+        with `payload_shape=(D,)`, a length-D sequence: source d seeds lane
+        d.  Entries that are None or negative leave their lane unseeded
+        (identity values, inactive).  `lane_tracking=True` attaches the
+        per-lane halt tracker (needs a multi-source program with
+        `lane_activates`)."""
+        p = self.program
+        n, s = part.num_masters, part.num_slots
+        dev = part.device
+        vertex_data = p.init_vertex_data(n, part.aux)
+        sd0 = p.init_scatter_data(n, part.aux).to(p.msg_dtype)
+        scatter_data = torch.full((s,) + tuple(sd0.shape[1:]),
+                                  p.monoid.identity, dtype=p.msg_dtype,
+                                  device=dev)
+        scatter_data[:n] = sd0
+        active = torch.zeros(s, dtype=torch.bool, device=dev)
+        active[:n] = p.init_active(n, part.aux)
+        lane_active = None
+        multi = source is not None and np.ndim(source) > 0
+        if source is not None and not multi:
+            src_idx = int(source)
+            vertex_data[src_idx] = 0.0
+            scatter_data[src_idx] = 0.0
+            active = torch.zeros(s, dtype=torch.bool, device=dev)
+            active[src_idx] = True
+        elif multi:  # one source per payload lane, None/-1 = lane unseeded
+            seeded = np.array([sv is not None and int(sv) >= 0
+                               for sv in source])
+            src_np = np.array([int(sv) if ok else s
+                               for sv, ok in zip(source, seeded)], np.int64)
+            lanes_np = np.arange(src_np.shape[0])
+            # drop out-of-range entries explicitly (the unseeded sentinel s)
+            in_n, in_s = src_np < n, src_np < s
+            src_n = torch.from_numpy(src_np[in_n]).to(dev)
+            lanes_n = torch.from_numpy(lanes_np[in_n]).to(dev)
+            if p.seed_sources is not None:
+                vertex_data, scatter_data = p.seed_sources(
+                    vertex_data, scatter_data, src_n, lanes_n, part.aux)
+            else:
+                vertex_data[src_n, lanes_n] = 0.0
+                scatter_data[torch.from_numpy(src_np[in_s]).to(dev),
+                             torch.from_numpy(lanes_np[in_s]).to(dev)] = 0.0
+            active = torch.zeros(s, dtype=torch.bool, device=dev)
+            active[torch.from_numpy(src_np[in_s]).to(dev)] = True
+            if lane_tracking:
+                lane_active = torch.from_numpy(seeded).to(dev)
+        if lane_tracking and (lane_active is None
+                              or p.lane_activates is None):
+            raise ValueError("lane_tracking needs a multi-source (sequence) "
+                             "`source` and a program with `lane_activates` "
+                             "(payload_shape=(D,))")
+        return EngineState(vertex_data, scatter_data, active, 0, lane_active)
+
+    # ------------------------------------------------------- scatter-combine
+    def scatter_combine(self, part: DevicePartition, state: EngineState,
+                        num_segments: Optional[int] = None) -> torch.Tensor:
+        """Phase 1: active messages on all out-edges of active vertices,
+        ⊕-accumulated over `num_segments` slots (default: all).  Dispatches
+        dense scan vs compacted gather through the plan."""
+        return self.make_plan().scatter_combine(self, part, state,
+                                                num_segments)
+
+    def dense_scatter_combine(self, part: DevicePartition, state: EngineState,
+                              num_segments: Optional[int] = None
+                              ) -> torch.Tensor:
+        """The dense strategy: scan every edge, mask inactive sources."""
+        p = self.program
+        eprop = (part.edge_props[p.needs_edge_prop]
+                 if p.needs_edge_prop else None)
+        gathered = state.scatter_data.index_select(0, part.src)
+        msgs = p.scatter_msg(gathered, eprop)
+        if self.dense_frontier:
+            msgs = msgs.to(p.msg_dtype)
+        else:
+            live = state.active_scatter.index_select(0, part.src) \
+                & part.edge_mask
+            msgs = torch.where(_bcast(live, msgs), msgs.to(p.msg_dtype),
+                               p.monoid.identity)
+        return segment_combine(
+            msgs, part.dst, num_segments or part.num_slots, p.monoid,
+            indices_are_sorted=part.edges_sorted_by_dst, seg_ptr=part.seg_ptr)
+
+    # ------------------------------------------------------------------ apply
+    def apply(self, part: DevicePartition, state: EngineState,
+              combined: torch.Tensor) -> EngineState:
+        """Phase 2: fold combine_data into vertex_data; assert_to_halt.
+        Returns a new state; `state` is not modified."""
+        p = self.program
+        n = part.num_masters
+        combined_m = combined[:n]
+        aux = dict(part.aux)
+        aux["step"] = state.step
+        act_apply = p.combine_activates(state.vertex_data, combined_m)
+        new_vd, new_sd, act_scatter = p.apply_fn(state.vertex_data,
+                                                 combined_m, aux)
+        vertex_data = torch.where(_bcast(act_apply, new_vd), new_vd,
+                                  state.vertex_data)
+        sd = state.scatter_data
+        scatter_data = torch.cat([
+            torch.where(_bcast(act_apply, new_sd), new_sd.to(p.msg_dtype),
+                        sd[:n]), sd[n:]])
+        if p.halts:  # traversal: only improved vertices scatter next round
+            next_active = act_apply & act_scatter
+        else:        # iterative: activity is whatever apply asserts
+            next_active = act_scatter
+        active = torch.cat([next_active,
+                            torch.zeros_like(state.active_scatter[n:])])
+        lane_active = state.lane_active
+        if lane_active is not None and p.lane_activates is not None:
+            lane_active = p.lane_activates(state.vertex_data,
+                                           combined_m).any(dim=0)
+        return EngineState(vertex_data, scatter_data, active, state.step + 1,
+                           lane_active)
+
+    # ------------------------------------------------------------- superstep
+    def superstep(self, part: DevicePartition, state: EngineState,
+                  exchange=NULL_EXCHANGE) -> EngineState:
+        """THE superstep: refresh → scatter-combine/reduce → apply."""
+        return execute_superstep(self, part, state, exchange)
+
+    # -------------------------------------------------------------------- run
+    def run(self, part: DevicePartition, state: EngineState,
+            max_steps: int = 100) -> EngineState:
+        """BSP loop: terminate when no vertex is scatter-active (paper §4.1)
+        or after `max_steps` supersteps."""
+        return execute_plan(self, part, state, NULL_EXCHANGE,
+                            max_steps=max_steps)
+
+    # ------------------------------------------------- GAS baseline (ablation)
+    def gas_superstep(self, part: DevicePartition, state: EngineState,
+                      edge_state: torch.Tensor) -> tuple:
+        """Two-sided GAS emulation (paper §2.2, Fig. 2 left): materialize
+        per-edge messages into `edge_state`, then gather and reduce.  Same
+        result as the Scatter-Combine superstep, with one extra [E] store
+        and load."""
+        p = self.program
+        eprop = (part.edge_props[p.needs_edge_prop]
+                 if p.needs_edge_prop else None)
+        gathered = state.scatter_data.index_select(0, part.src)
+        msgs = p.scatter_msg(gathered, eprop)
+        live = state.active_scatter.index_select(0, part.src) & part.edge_mask
+        new_edge_state = torch.where(_bcast(live, msgs),
+                                     msgs.to(p.msg_dtype), p.monoid.identity)
+        # --- super-step boundary: edge_state persists ---
+        combined = segment_combine(
+            new_edge_state, part.dst, part.num_slots, p.monoid,
+            indices_are_sorted=part.edges_sorted_by_dst, seg_ptr=part.seg_ptr)
+        return self.apply(part, state, combined), new_edge_state

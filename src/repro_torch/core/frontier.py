@@ -1,0 +1,233 @@
+"""Frontier-compacted scatter-combine with degree-bucketed tiles.
+
+The dense scatter path scans every edge each superstep and masks by
+`active_scatter[src]`; on a scale-free graph a BFS superstep with a 1%
+frontier wastes 99% of its gather bandwidth.  This module compacts instead:
+
+  1. `torch.nonzero_static(active, size=cap)` extracts at most `cap` active
+     slots (fill value `num_slots`);
+  2. the CSR `indptr` built at ingress (`graph.structures.csr_layout`) gives
+     each frontier slot's out-edge range, gathered into a padded edge tile
+     through the position index `csr_eidx`, so destinations and edge props
+     read the canonical dst-sorted columns;
+  3. the tile's messages feed the tile route of the combine kernel
+     (`kernels.ops.tile_segment_combine`: stable sort by dst, row pointer,
+     kernel).  Invalid lanes carry identity messages and the
+     `num_segments` destination sentinel, which the combine drops.
+
+The default path is degree-BUCKETED (`bucketed_scatter_combine`): each
+degree bucket gathers its own `[cap_b, max_deg_b]` tile, so a hub does not
+pad every frontier slot to its degree.  One padded `[cap, max_deg]` tile
+(`compact_scatter_combine`) is kept as the "flat" strategy.
+
+Strategy selection is a host branch per superstep on the live counts, all
+read in one transfer: dense above the total capacity (the density
+crossover), compacted below.  A bucket whose live members exceed `cap_b`
+degrades to a dense scan restricted to that bucket's sources; no vertex is
+ever dropped.
+"""
+from __future__ import annotations
+
+import functools
+from typing import TYPE_CHECKING, Optional, Sequence
+
+import torch
+
+from repro_torch.kernels import ops as kernel_ops
+
+if TYPE_CHECKING:  # pragma: no cover - typing only, avoids a cycle
+    from repro_torch.core.engine import DevicePartition, EngineState
+    from repro_torch.core.plan import FrontierPlan
+    from repro_torch.core.vertex_program import VertexProgram
+
+# Density threshold for auto strategy selection: compact below ~6% active.
+FRONTIER_DENSITY = 1.0 / 16.0
+
+# Calibrated capacity head-room: cap = GROWTH x the largest frontier
+# observed during the probe supersteps.
+CAP_GROWTH = 4
+
+
+def default_cap(num_slots: int,
+                frontier_hist: Optional[Sequence[int]] = None) -> int:
+    """Default frontier capacity, rounded up to a multiple of 8.
+
+    With `frontier_hist` (live frontier sizes of the first supersteps,
+    `GREEngine.calibrate_frontier_cap`) the capacity is `CAP_GROWTH x` the
+    largest observed size; without it, the density threshold as a fixed
+    fraction of `num_slots`.
+    """
+    if frontier_hist:
+        cap = max(8, CAP_GROWTH * int(max(frontier_hist)))
+    else:
+        cap = max(8, int(num_slots * FRONTIER_DENSITY))
+    return min(num_slots, -(-cap // 8) * 8)
+
+
+def bucket_caps(sizes: Sequence[int], cap: int) -> tuple:
+    """Split the global frontier capacity across buckets proportionally to
+    membership; each nonempty bucket keeps a floor of 8, quotas are rounded
+    up to a multiple of 8 and clamped to the bucket size."""
+    total = sum(sizes)
+    if total == 0:
+        return tuple(0 for _ in sizes)
+    caps = []
+    for s in sizes:
+        if s == 0:
+            caps.append(0)
+            continue
+        quota = -(-cap * s // total)            # ceil, proportional share
+        quota = -(-quota // 8) * 8
+        caps.append(min(s, max(quota, 8)))
+    return tuple(caps)
+
+
+def gather_frontier_edge_tile(part: "DevicePartition", frontier: torch.Tensor,
+                              cap: int, max_deg: Optional[int] = None):
+    """Gather the frontier slots' out-edge ranges into a padded edge tile.
+
+    `frontier [cap]` holds active slots with fill value `part.num_slots`,
+    whose range `[indptr[num_slots], indptr[num_slots])` is empty.  Returns
+    `(eid [cap, max_deg], valid)`: positions into the partition's canonical
+    edge columns, and the mask of the ragged lanes.
+    """
+    slots = part.num_slots
+    if max_deg is None:
+        max_deg = part.csr_max_deg
+    start = part.csr_indptr[frontier]
+    end = part.csr_indptr[torch.clamp(frontier + 1, max=slots)]
+    deg = end - start                                    # [cap], 0 on fills
+    col = torch.arange(max_deg, dtype=torch.int32, device=frontier.device)
+    valid = col[None, :] < deg[:, None]                  # [cap, max_deg]
+    pos = torch.where(valid, start[:, None] + col[None, :], 0)
+    return part.csr_eidx[pos], valid
+
+
+def frontier_tile(program: "VertexProgram", part: "DevicePartition",
+                  state: "EngineState", num_segments: int, cap: int,
+                  max_deg: Optional[int] = None,
+                  frontier_mask: Optional[torch.Tensor] = None):
+    """The gathered tile of the ≤ `cap` live slots' out-edges: `(msgs
+    [cap·max_deg, *payload], dst [cap·max_deg])`, unsorted, with identity
+    messages and the `num_segments` sentinel on invalid lanes."""
+    p = program
+    slots = part.num_slots
+    if max_deg is None:
+        max_deg = part.csr_max_deg
+    mask = state.active_scatter if frontier_mask is None else frontier_mask
+    frontier = torch.nonzero_static(mask, size=cap,
+                                    fill_value=slots).squeeze(1)
+    eid, valid = gather_frontier_edge_tile(part, frontier, cap, max_deg)
+    dst = torch.where(valid, part.dst[eid], num_segments)
+    # fill entries (== num_slots) lie past scatter_data: clamp the gather
+    # and give them the identity explicitly
+    gathered = state.scatter_data[torch.clamp(frontier, max=slots - 1)]
+    real = (frontier < slots).reshape((-1,) + (1,) * (gathered.dim() - 1))
+    gathered = torch.where(real, gathered, p.monoid.identity)
+    tile = gathered[:, None].expand((cap, max_deg) + tuple(gathered.shape[1:]))
+    flat = tile.reshape((cap * max_deg,) + tuple(gathered.shape[1:]))
+    eprop = (part.edge_props[p.needs_edge_prop][eid].reshape(-1)
+             if p.needs_edge_prop else None)
+    msgs = p.scatter_msg(flat, eprop)
+    vmask = valid.reshape((-1,) + (1,) * (msgs.dim() - 1))
+    msgs = torch.where(vmask, msgs.to(p.msg_dtype), p.monoid.identity)
+    return msgs, dst.reshape(-1)
+
+
+def compact_scatter_combine(program: "VertexProgram", part: "DevicePartition",
+                            state: "EngineState", num_segments: int,
+                            cap: int, max_deg: Optional[int] = None,
+                            frontier_mask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """⊕-combine emitted only from the ≤ `cap` live slots' out-edges.
+
+    Equal to the dense masked scan whenever the live mask fits in `cap`
+    (bitwise for min/max; sums up to float reorder).  Callers guard
+    `|frontier| <= cap`.
+    """
+    msgs, dst = frontier_tile(program, part, state, num_segments, cap,
+                              max_deg, frontier_mask)
+    return kernel_ops.tile_segment_combine(msgs, dst, num_segments,
+                                           program.monoid.name)
+
+
+def dense_masked_combine(program: "VertexProgram", part: "DevicePartition",
+                         state: "EngineState", num_segments: int,
+                         src_mask: torch.Tensor) -> torch.Tensor:
+    """Dense every-edge scan with an explicit source-activity mask (the
+    per-bucket overflow path)."""
+    p = program
+    eprop = (part.edge_props[p.needs_edge_prop]
+             if p.needs_edge_prop else None)
+    gathered = state.scatter_data.index_select(0, part.src)
+    msgs = p.scatter_msg(gathered, eprop)
+    live = src_mask.index_select(0, part.src) & part.edge_mask
+    live = live.reshape(live.shape + (1,) * (msgs.dim() - live.dim()))
+    msgs = torch.where(live, msgs.to(p.msg_dtype), p.monoid.identity)
+    return kernel_ops.segment_combine(msgs, part.dst, num_segments,
+                                      p.monoid.name, seg_ptr=part.seg_ptr)
+
+
+def frontier_counts(part: "DevicePartition", active: torch.Tensor) -> list:
+    """`[|F|, |F ∩ bucket 0|, |F ∩ bucket 1|, ...]` in one host transfer."""
+    nb = len(part.bucket_max_deg)
+    per = torch.zeros(nb + 1, dtype=torch.int64, device=active.device)
+    per.scatter_add_(0, (part.bucket_id + 1).to(torch.int64),
+                     active.to(torch.int64))
+    return torch.cat([active.sum().reshape(1), per[1:]]).tolist()
+
+
+def bucketed_scatter_combine(program: "VertexProgram",
+                             part: "DevicePartition", state: "EngineState",
+                             num_segments: int, caps: Sequence[int],
+                             counts: Sequence[int]) -> torch.Tensor:
+    """Degree-bucketed compacted ⊕ over the live frontier.
+
+    `bucket_id` partitions the slots with out-edges, so the per-bucket
+    partial combines touch every active out-edge exactly once.  Each bucket
+    gathers its own tile when its live members fit `cap_b`, else runs a
+    bucket-restricted dense scan.  `counts` are the live members per bucket
+    (`frontier_counts(...)[1:]`); a bucket with none contributes the
+    identity and is skipped.
+    """
+    p = program
+    partials = []
+    for b, (cap_b, max_deg_b) in enumerate(zip(caps, part.bucket_max_deg)):
+        if cap_b <= 0 or max_deg_b <= 0 or counts[b] == 0:
+            continue
+        mask_b = state.active_scatter & (part.bucket_id == b)
+        if counts[b] <= cap_b:
+            partials.append(compact_scatter_combine(
+                program, part, state, num_segments, cap_b, max_deg=max_deg_b,
+                frontier_mask=mask_b))
+        else:
+            partials.append(dense_masked_combine(program, part, state,
+                                                 num_segments, mask_b))
+    if not partials:
+        return torch.full((num_segments,) + tuple(p.payload_shape),
+                          p.monoid.identity, dtype=p.msg_dtype,
+                          device=part.device)
+    return functools.reduce(p.monoid.op, partials)
+
+
+def frontier_scatter_combine(program: "VertexProgram",
+                             part: "DevicePartition", state: "EngineState",
+                             num_segments: int, plan: "FrontierPlan",
+                             dense_fn) -> torch.Tensor:
+    """Per-superstep strategy selection with capacity/overflow guards.
+
+    `plan` is the partition's resolution (kind "flat" or "bucketed");
+    `dense_fn()` produces the dense masked combine, taken whenever the live
+    frontier exceeds the total compacted capacity.
+    """
+    kind, caps = plan
+    if kind == "flat":
+        if int(state.active_scatter.sum()) <= caps:
+            return compact_scatter_combine(program, part, state,
+                                           num_segments, caps)
+        return dense_fn()
+    counts = frontier_counts(part, state.active_scatter)
+    if counts[0] <= sum(caps):
+        return bucketed_scatter_combine(program, part, state, num_segments,
+                                        caps, counts[1:])
+    return dense_fn()
