@@ -17,12 +17,15 @@
    (in-degree ~1e5) its own rounding drift (~eps·sqrt(in-degree)) is of
    the order of that tolerance; its distance from the float64 sum is
    printed beside the kernel's.
-   Times come from CUDA events (median of `--reps`); `bound_ms` is the
-   bytes the function must move over 3.35 TB/s, counting the messages and
-   destinations of the edges this input routes to a segment (a tile's
-   sentinel lanes lie past the row pointer's end and are never read) plus
-   the row pointer and the output; `library_ms` is one
-   `torch.segment_reduce` call on the same inputs, a yardstick only.
+   Times come from CUDA events (median of `--reps`); `launches` counts
+   the kernel launches of the timed loop; `bound_ms` is the bytes the
+   kernel must move over 3.35 TB/s: the messages of the edges this input
+   routes to a segment (a tile's sentinel lanes lie past the row
+   pointer's end and are never read), the row pointer and the output
+   (the kernel never reads dst).  The whole tile route (sort, row pointer,
+   kernel) also reads every lane's dst; its `route_bound_ms` counts that.
+   `library_ms` is one `torch.segment_reduce` call on the same inputs, a
+   yardstick only.
 3. Drives the main path through the port's entry points
    (`DevicePartition.from_graph`, `GREEngine`, `init_state`, `run`):
    PageRank (30 supersteps), SSSP (frontier "auto"), BFS (frontier
@@ -42,6 +45,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -83,9 +87,15 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def bound_ms(e: int, d: int, v: int) -> float:
-    """Least time to move the combine's bytes: `e` edges' messages and dst,
+    """Least time to move the kernel's bytes: `e` routed edges' messages,
     the row pointer and the output, each once."""
-    return (e * d * 4 + e * 4 + (v + 1) * 4 + v * d * 4) / HBM_BYTES_PER_S * 1e3
+    return (e * d * 4 + (v + 1) * 4 + v * d * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def route_bound_ms(lanes: int, e: int, d: int, v: int) -> float:
+    """Least time of the whole tile route: every lane's dst, the `e` routed
+    lanes' messages and the output, each once."""
+    return (lanes * 4 + e * d * 4 + v * d * 4) / HBM_BYTES_PER_S * 1e3
 
 
 # ------------------------------------------------------------ kernel phase
@@ -124,13 +134,16 @@ def check_case(name, route, op, msgs, dst, seg_ptr, num_segments, reps):
     offsets = seg_ptr.to(torch.int64)
     lib_data = msgs[:n_used]
     ident = sc.IDENTITY[op]
+    launches_before = sc.LAUNCHES[route]
+    kernel_ms = cuda_ms(lambda: sc.segment_combine_cuda(
+        msgs, dst, seg_ptr, num_segments, op, route=route), reps)
     rec = {
         "case": name, "route": route, "op": op, "E": int(msgs.shape[0]),
         "E_routed": n_used, "D": int(msgs.shape[1]),
         "segments": num_segments,
         "max_abs_err": max_abs_err, "max_rel_err": max_rel_err, **extra,
-        "kernel_ms": cuda_ms(lambda: sc.segment_combine_cuda(
-            msgs, dst, seg_ptr, num_segments, op, route=route), reps),
+        "kernel_ms": kernel_ms,
+        "launches": sc.LAUNCHES[route] - launches_before,
         "plain_ms": cuda_ms(lambda: sc.segment_combine_plain(
             msgs, dst, num_segments, op), reps),
         "library_ms": cuda_ms(lambda: torch.segment_reduce(
@@ -204,13 +217,53 @@ def kernel_phase(part, source, reps):
     # the whole tile route: stable sort + row pointer + kernel
     rec["route_ms"] = cuda_ms(lambda: sc.tile_segment_combine_cuda(
         tmsgs, tdst, nseg, "min"), reps)
-    log("tile_route_ms", rec["route_ms"])
+    rec["route_bound_ms"] = route_bound_ms(
+        tdst.shape[0], rec["E_routed"], rec["D"], nseg)
+    log(f"tile_route_ms={rec['route_ms']} "
+        f"route_bound_ms={rec['route_bound_ms']}")
     records.append(rec)
     torch.cuda.synchronize()
     return records
 
 
 # ------------------------------------------------------------- main path
+class Inputs(NamedTuple):
+    graph: object          # repro_torch.graph.structures.Graph
+    ugraph: object         # graph.as_undirected(), for CC
+    part: object           # DevicePartition of graph, on the card
+    upart: object          # DevicePartition of ugraph, on the card
+    source: int            # the highest-out-degree vertex
+    sources: list          # source + 31 sampled with seed 0 (32-lane BFS)
+
+
+def build_inputs(scale: int) -> Inputs:
+    """The main path's graph, partitions and traversal sources; the one
+    set-up of this script and `tools/profile_torch_main_path.py`.  Needs
+    `src/` on `sys.path`."""
+    from repro_torch.core.engine import DevicePartition
+    from repro_torch.graph.generators import rmat_edges
+    t0 = time.perf_counter()
+    graph = rmat_edges(scale, 16, seed=0, weights=True).dedup()
+    ugraph = graph.as_undirected()
+    log(f"ingress_graph_s={time.perf_counter() - t0:.3f} "
+        f"V={graph.num_vertices} E={graph.num_edges}")
+    t0 = time.perf_counter()
+    part = DevicePartition.from_graph(graph, device="cuda")
+    upart = DevicePartition.from_graph(ugraph, device="cuda")
+    torch.cuda.synchronize()
+    log(f"ingress_partition_s={time.perf_counter() - t0:.3f} "
+        f"bucket_sizes={part.bucket_sizes} "
+        f"bucket_max_deg={part.bucket_max_deg}")
+    outdeg = graph.out_degree()
+    source = int(np.argmax(outdeg))
+    cands = np.flatnonzero(outdeg > 0)
+    cands = cands[cands != source]
+    rng = np.random.default_rng(0)
+    sources = [source] + [int(s) for s in
+                          rng.choice(cands, size=31, replace=False)]
+    return Inputs(graph, ugraph, part, upart, source, sources)
+
+
 def timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -347,8 +400,6 @@ def main() -> int:
     if args.scale > 24:
         raise SystemExit("--scale must be <= 24")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.engine import DevicePartition
-    from repro_torch.graph.generators import rmat_edges
     from repro_torch.kernels import _build
     from repro_torch.kernels import segment_combine as sc
 
@@ -357,28 +408,10 @@ def main() -> int:
     log("torch", torch.__version__, "cuda", torch.version.cuda)
 
     t0 = time.perf_counter()
-    _build.build()
+    _build.load("segment_combine")
     log(f"build_s={time.perf_counter() - t0:.3f}")
 
-    t0 = time.perf_counter()
-    graph = rmat_edges(args.scale, 16, seed=0, weights=True).dedup()
-    ugraph = graph.as_undirected()
-    log(f"ingress_graph_s={time.perf_counter() - t0:.3f} "
-        f"V={graph.num_vertices} E={graph.num_edges}")
-    t0 = time.perf_counter()
-    part = DevicePartition.from_graph(graph, device="cuda")
-    upart = DevicePartition.from_graph(ugraph, device="cuda")
-    torch.cuda.synchronize()
-    log(f"ingress_partition_s={time.perf_counter() - t0:.3f} "
-        f"bucket_sizes={part.bucket_sizes} "
-        f"bucket_max_deg={part.bucket_max_deg}")
-    outdeg = graph.out_degree()
-    source = int(np.argmax(outdeg))
-    cands = np.flatnonzero(outdeg > 0)
-    cands = cands[cands != source]
-    rng = np.random.default_rng(0)
-    sources = [source] + [int(s) for s in
-                          rng.choice(cands, size=31, replace=False)]
+    graph, ugraph, part, upart, source, sources = build_inputs(args.scale)
     ref = host_oracles(graph, ugraph, source)
 
     records = kernel_phase(part, source, args.reps)

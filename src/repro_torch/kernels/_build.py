@@ -1,11 +1,11 @@
 """Build the port's CUDA kernels with `nvcc` and load them with `ctypes`.
 
-Each `csrc/<name>.cu` exposes a plain `extern "C"` launcher and compiles on
-its own into a shared library under `kernels/_build/` (git-ignored), named
-by a hash of the source and flags, so an edited source never loads a stale
-library.  The build runs at first use, never at import: the CPU tests import
-every module on machines without `nvcc`.  A failed build raises with the
-compiler's output; nothing falls back.
+`csrc/<name>.cu` exposes a plain `extern "C"` launcher and compiles into a
+shared library under `kernels/_build/` (git-ignored), named by a hash of the
+source and flags, so an edited source never loads a stale library.  The
+build runs at first use, never at import: the CPU tests import every module
+on machines without `nvcc`.  A failed build raises with the compiler's
+output; nothing falls back.
 """
 from __future__ import annotations
 
@@ -15,13 +15,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("segment_combine",)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -45,38 +44,21 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
-    """Compile every named source that has no current library, one `nvcc`
-    per source, all started together.  Returns name -> library path."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: library_path(name) for name in names}
-    todo = {name: p for name, p in paths.items() if not p.exists()}
-    if not todo:
-        return paths
-    nvcc = nvcc_path()
-    procs = {}
-    for name, out in todo.items():
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, cmd)
-    errors = []
-    for name, (proc, tmp, out, cmd) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"{' '.join(cmd)}\n(exit {proc.returncode})\n{log}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent process never loads half
-    if errors:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-    return paths
-
-
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, building it at first use."""
+    """The loaded library for `csrc/<name>.cu`, compiled at first use."""
     lib = _LOADED.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build((name,))[name]))
-        _LOADED[name] = lib
+    if lib is not None:
+        return lib
+    out = library_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent process never loads half
+    lib = _LOADED[name] = ctypes.CDLL(str(out))
     return lib

@@ -21,10 +21,10 @@
 // Accumulation is float32, with no atomics and no tensor cores, so the order
 // of every sum is fixed by the launch and two launches give the same bits.
 //
-// Bound on the card: bytes.  Each message is read once, plus the row
-// pointer and the output, E*D*4 + (V+1)*4 + V*D*4 bytes (the wrapper's
-// bound also counts the E*4 bytes of dst) over 3.35 TB/s; the arithmetic
-// is one op per message element.  What this simple design leaves on the
+// Bound on the card: bytes.  Each routed message is read once, plus the
+// row pointer and the output, E*D*4 + (V+1)*4 + V*D*4 bytes over
+// 3.35 TB/s (dst is never read); the arithmetic is one op per message
+// element.  What this simple design leaves on the
 // table: hub segments (R-MAT in-degrees of 1e4-1e5) serialise on one warp
 // while the rest of the grid has drained; 1 < D < 32 reads a column at a
 // time with a stride of D floats; loads are not staged through shared

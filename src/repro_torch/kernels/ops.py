@@ -28,14 +28,16 @@ def segment_combine(msgs: torch.Tensor, dst: torch.Tensor, num_segments: int,
                     seg_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """⊕ along dst-sorted edges (the dense route).
 
-    `seg_ptr` is the ingress row pointer over `dst` (built here when
-    absent); any `seg_ptr[:num_segments + 1]` prefix serves a smaller
+    `seg_ptr` is the ingress row pointer over `dst`
+    (`DevicePartition.seg_ptr`), required on a CUDA tensor and unused on a
+    CPU one; any `seg_ptr[:num_segments + 1]` prefix serves a smaller
     segment space, since entries past it are dropped.
     """
     if not msgs.is_cuda:
         return sc.segment_combine_plain(msgs, dst, num_segments, op)
     if seg_ptr is None:
-        seg_ptr = sc.segment_row_pointer(dst, num_segments)
+        raise ValueError("segment_combine: the dense route on a CUDA tensor "
+                         "needs the ingress row pointer seg_ptr")
     out = sc.segment_combine_cuda(_flat(msgs), dst,
                                   seg_ptr[:num_segments + 1], num_segments,
                                   op, route="dense")

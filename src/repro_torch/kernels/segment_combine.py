@@ -14,9 +14,11 @@ of its routes:
       device sort of the tile's dst, a `searchsorted` row pointer, then the
       same kernel.
 
-Bound on the card: bytes, `E·D·4 + E·4 + (V+1)·4 + V·D·4` (messages, dst,
-row pointer, output) over 3.35 TB/s; the kernel's source says what its
-simple warp-per-segment design leaves on the table.
+Bound on the card: bytes, `E·D·4 + (V+1)·4 + V·D·4` (messages, row
+pointer, output; the kernel never reads dst, and E counts only the edges
+the row pointer routes to a segment) over 3.35 TB/s.  The tile route's
+sort also reads the tile's dst, `E_tile·4` bytes more.  The kernel's source
+says what its simple warp-per-segment design leaves on the table.
 
 `segment_combine_plain` is the plain PyTorch version of the same function
 (identity-filled output, `scatter_reduce_` with `include_self=True`).  The

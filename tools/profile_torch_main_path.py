@@ -3,8 +3,9 @@
 
   python3 tools/profile_torch_main_path.py [--scale 22]
 
-Builds the R-MAT graph of `chip_smoke.py` (Graph500 a=0.57, b=c=0.19, edge
-factor 16, seed 0, weights) and its partitions on the card, runs each
+Builds the inputs of `chip_smoke.py` with its own `build_inputs` (Graph500
+R-MAT a=0.57, b=c=0.19, edge factor 16, seed 0, weights; both partitions on
+the card; the same traversal sources), runs each
 program of the main path once to warm up, then once under
 `torch.profiler`.  For each program it prints one JSON line: the wall time
 of the traced run, the device-busy time (the union of its kernels'
@@ -21,7 +22,6 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -90,19 +90,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile: needs an NVIDIA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    from chip_smoke import build_inputs
     from repro_torch.core import algorithms
-    from repro_torch.core.engine import DevicePartition, GREEngine
-    from repro_torch.graph.generators import rmat_edges
+    from repro_torch.core.engine import GREEngine
 
-    graph = rmat_edges(args.scale, 16, seed=0, weights=True).dedup()
-    part = DevicePartition.from_graph(graph, device="cuda")
-    upart = DevicePartition.from_graph(graph.as_undirected(), device="cuda")
-    source = int(np.argmax(graph.out_degree()))
-    rng = np.random.default_rng(0)
-    cands = np.flatnonzero(graph.out_degree() > 0)
-    sources = [source] + [int(s) for s in rng.choice(
-        cands[cands != source], size=31, replace=False)]
+    _, _, part, upart, source, sources = build_inputs(args.scale)
 
     def run(program, p, src=None, frontier="auto", steps=10_000):
         eng = GREEngine(program, frontier=frontier)
