@@ -3,20 +3,21 @@
 
   python3 chip_smoke.py [--scale 22] [--reps 10]
 
-1. Prints the card's name and power limit and builds the CUDA combine
-   kernel from `src/repro_torch/kernels/csrc/` with `nvcc` (sm_90a).
+1. Prints the card's name and power limit and builds both CUDA kernels
+   from `src/repro_torch/kernels/csrc/` with `nvcc` (sm_90a), one `nvcc`
+   per source, all started together.
 2. Builds the Graph500 R-MAT graph (a=0.57, b=c=0.19, edge factor 16,
    seed 0, integer weights in [1, 65535]) at `--scale` and its partitions
-   on the card, then holds the kernel against its plain PyTorch version on
-   messages gathered from that partition: the dense route at D=1 (sum, min,
-   max) and D=32 (min), and one real bucketed frontier tile (min).  Min/max
-   must be bitwise equal to the plain version, and two launches bitwise
-   equal to each other.  Sums must agree to rtol 1e-5 with the plain
-   version evaluated in float64 on the same values: the float32 plain
-   version sums with atomics in an arbitrary order, and on hub segments
-   (in-degree ~1e5) its own rounding drift (~eps·sqrt(in-degree)) is of
-   the order of that tolerance; its distance from the float64 sum is
-   printed beside the kernel's.
+   on the card, then holds the combine kernel against its plain PyTorch
+   version on messages gathered from that partition: the dense route at
+   D=1 (sum, min, max) and D=32 (min), and one real bucketed frontier tile
+   (min).  Min/max must be bitwise equal to the plain version, and two
+   launches bitwise equal to each other.  Sums must agree to rtol 1e-5
+   with the plain version evaluated in float64 on the same values: the
+   float32 plain version sums with atomics in an arbitrary order, and on
+   hub segments (in-degree ~1e5) its own rounding drift
+   (~eps·sqrt(in-degree)) is of the order of that tolerance; its distance
+   from the float64 sum is printed beside the kernel's.
    Times come from CUDA events (median of `--reps`); `launches` counts
    the kernel launches of the timed loop; `bound_ms` is the bytes the
    kernel must move over 3.35 TB/s: the messages of the edges this input
@@ -26,12 +27,42 @@
    kernel) also reads every lane's dst; its `route_bound_ms` counts that.
    `library_ms` is one `torch.segment_reduce` call on the same inputs, a
    yardstick only.
-3. Drives the main path through the port's entry points
+3. Drives the graph path through the port's entry points
    (`DevicePartition.from_graph`, `GREEngine`, `init_state`, `run`):
    PageRank (30 supersteps), SSSP (frontier "auto"), BFS (frontier
    "compact" and "dense"), CC and 32-lane BFS, each held against a
-   numpy/scipy oracle, with the kernel's launch counters read around it.
-4. Prints the `kernels` JSON line, the nvidia-smi line, and last
+   numpy/scipy oracle, with the combine kernel's launch counters set to 0
+   before it and read after it.
+4. Attention kernel phase: the flash-attention kernel against its plain
+   version at smollm-135m's prefill shape (B=4, S=2048, 3 kv heads x 3,
+   H=64, causal, bf16), a ragged causal length (S=1000, bf16), float32
+   (2, 512, 2, 2, 64), non-causal Sq != Sk (1, 64/192, 2, 2, 32, float32)
+   and H=128 (bf16).  Tolerances: float32 within 2e-5 (the JAX package's
+   own, tests/test_kernels.py; TF32 is off and the kernel uses none),
+   bf16 within 3e-2 of the plain version on the same bf16 inputs (the JAX
+   package's bf16 tolerance: the two round p to bf16 at different scales).
+   Two launches must be bitwise equal.  `bound_ms` is the larger of the
+   FLOPs the visible (query, key) pairs need, 4·H per pair, over the
+   peak for the input type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
+   float32), and the bytes of q, k, v and o over 3.35 TB/s.  `library_ms`
+   is one `scaled_dot_product_attention(enable_gqa=True)` call on the same
+   inputs in its own layout, a yardstick the port never calls.
+5. LM serving phase, full-width smollm-135m (30 layers, d_model 576, 9
+   heads over 3 kv heads, bf16; random weights from a CUDA generator
+   seeded 0), with the attention kernel's launch count set to 0 before and
+   read after: the `launch/serve.py` flow (batched prefill B=4 of 2048
+   tokens, then 32 greedy decode steps), then `ContinuousBatcher(8 slots,
+   max_len 2112)` serving 16 requests with prompt lengths uniform in
+   128-2048 (numpy seed 0) and 32 new tokens each.  Each run must launch
+   the kernel 30 times per prefill.  Then: prefill's last-position logits
+   and one decode step's logits against `lm_forward` on the same tokens,
+   within 5e-2 of the largest reference logit (bf16 through 30 layers,
+   with cuBLAS and the attention taking other summation orders on the two
+   sides); and at full width in float32 (TF32 off) three short requests
+   through the batcher must give exactly the tokens of offline greedy
+   generation through `lm_forward`.
+6. Prints the `kernels` JSON line (the combine kernel's two routes and the
+   attention kernel), the nvidia-smi line, and last
    `{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero; without a card it
@@ -40,10 +71,12 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -52,10 +85,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+# H100 SXM dense peaks by input type: bf16 tensor cores, float32 FMA
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/segment_combine.cu"
 REPLACES = {"dense": "src/repro/kernels/segment_combine.py:232",
             "tile": "src/repro/kernels/segment_combine.py:194"}
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+ATTN_REPLACES = "src/repro/kernels/flash_attention.py:70"
 SUM_RTOL = 1e-5                    # f32 sum vs the plain version in f64
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+LOGIT_RTOL = 5e-2                  # bf16 logits, of the largest reference
 
 
 def log(*parts) -> None:
@@ -382,6 +421,264 @@ def check_lanes(part, sources, multi, single0):
         "runs")
 
 
+# ------------------------------------------------------- attention phase
+def attention_bound(b, sq, sk, kv, g, h, causal, dtype):
+    """(bound_ms, bound_by): the FLOPs of the visible (query, key) pairs,
+    4·H each, over the input type's peak, against the bytes of q, k, v and
+    o, each once, over 3.35 TB/s."""
+    if causal:    # query i sees keys 0..i
+        pairs = sum(min(i + 1, sk) for i in range(sq))
+    else:
+        pairs = sq * sk
+    flops = 4.0 * h * pairs * b * kv * g
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * sq * kv * g * h + 2 * b * sk * kv * h) * size
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+ATTN_CASES = (  # name, B, Sq, Sk, Kv, G, H, causal, dtype
+    ("smollm_prefill", 4, 2048, 2048, 3, 3, 64, True, torch.bfloat16),
+    ("ragged_causal", 1, 1000, 1000, 3, 3, 64, True, torch.bfloat16),
+    ("f32", 2, 512, 512, 2, 2, 64, True, torch.float32),
+    ("noncausal_sq_ne_sk", 1, 64, 192, 2, 2, 32, False, torch.float32),
+    ("h128", 2, 1024, 1024, 2, 4, 128, True, torch.bfloat16),
+)
+
+
+def attention_kernel_phase(reps):
+    """The attention kernel against its plain version at every case of
+    ATTN_CASES; returns the case records."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    records = []
+    for name, b, sq, sk, kv, g, h, causal, dt in ATTN_CASES:
+        gen = torch.Generator("cuda").manual_seed(sq + sk + h)
+        q = torch.randn((b, sq, kv, g, h), generator=gen, device="cuda").to(dt)
+        k = torch.randn((b, sk, kv, h), generator=gen, device="cuda").to(dt)
+        v = torch.randn((b, sk, kv, h), generator=gen, device="cuda").to(dt)
+        first = fa.flash_attention_cuda(q, k, v, causal)
+        second = fa.flash_attention_cuda(q, k, v, causal)
+        plain = fa.flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"attention {name}: two launches differ")
+        if not torch.isfinite(first).all():
+            raise AssertionError(f"attention {name}: non-finite output")
+        err = (first.float() - plain.float()).abs()
+        tol = ATTN_TOL[dt]
+        excess = float((err - tol - tol * plain.float().abs()).max())
+        if excess > 0.0:
+            raise AssertionError(f"attention {name}: off by more than "
+                                 f"{tol} (excess {excess})")
+        # the library call's own layout: [B, heads, S, H]
+        lq = q.reshape(b, sq, kv * g, h).transpose(1, 2).contiguous()
+        lk = k.transpose(1, 2).contiguous()
+        lv = v.transpose(1, 2).contiguous()
+        lib = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                             enable_gqa=True)
+        lib_err = float((lib.transpose(1, 2).reshape(first.shape).float()
+                         - plain.float()).abs().max())
+        launches_before = fa.LAUNCHES
+        kernel_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal),
+                            reps)
+        bound, bound_by = attention_bound(b, sq, sk, kv, g, h, causal, dt)
+        rec = {
+            "case": name, "B": b, "Sq": sq, "Sk": sk, "Kv": kv, "G": g,
+            "H": h, "causal": causal, "dtype": str(dt).split(".")[-1],
+            "max_abs_err": float(err.max()), "tol": tol,
+            "library_max_abs_err": lib_err,
+            "kernel_ms": kernel_ms,
+            "launches": fa.LAUNCHES - launches_before,
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal), reps),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=causal, enable_gqa=True), reps),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        log("attention_case", json.dumps(rec))
+        records.append(rec)
+        del q, k, v, first, second, plain, err, lq, lk, lv, lib
+    torch.cuda.empty_cache()
+    return records
+
+
+# ------------------------------------------------------ LM serving phase
+def serve_flow(params, cfg, batch, prompt_len, gen):
+    """The `launch/serve.py` flow at full width; returns its record and
+    the prompts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import greedy_generate
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (batch,
+                                                           prompt_len)))
+    prompts = prompts.cuda()
+    before = fa.LAUNCHES
+    tokens, times = greedy_generate(params, cfg, prompts, gen)
+    launches = fa.LAUNCHES - before
+    if launches != cfg.n_layers:
+        raise AssertionError(f"serve flow: {launches} attention launches, "
+                             f"want {cfg.n_layers} (one prefill)")
+    steps = gen - 1
+    rec = {"B": batch, "prompt_len": prompt_len, "decode_steps": steps,
+           "prefill_ms": times["prefill_s"] * 1e3,
+           "decode_ms_per_step": times["decode_s"] * 1e3 / steps,
+           "prefill_tokens_per_s": batch * prompt_len / times["prefill_s"],
+           "decode_tokens_per_s": batch * steps / times["decode_s"],
+           "tokens_per_s": batch * gen / (times["prefill_s"]
+                                          + times["decode_s"]),
+           "attention_launches": launches}
+    log("serve_flow", json.dumps(rec))
+    if tokens.shape != (batch, gen) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"serve flow: bad tokens {tokens.shape}")
+    return rec, prompts
+
+
+def batcher_run(params, cfg, n_requests, slots, max_len, lo, hi, max_new):
+    """`ContinuousBatcher` serving `n_requests` prompts of uniform length in
+    [lo, hi]; time to first token is read after each `step()`, so it
+    includes that step's decode."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving import ContinuousBatcher, Request
+    rng = np.random.default_rng(0)
+    lens = rng.integers(lo, hi + 1, n_requests)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+        np.int32), max_new=max_new) for i, n in enumerate(lens)]
+    sched = ContinuousBatcher(params, cfg, batch_slots=slots,
+                              max_len=max_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = fa.LAUNCHES
+    ttft = {}
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    steps = 0
+    while True:
+        active = sched.step()
+        steps += 1
+        now = time.perf_counter()
+        for r in reqs:
+            if r.out and r.uid not in ttft:
+                ttft[r.uid] = now - t0
+        if active == 0 and not sched.queue:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.LAUNCHES - before
+    if launches != cfg.n_layers * n_requests:
+        raise AssertionError(f"batcher: {launches} attention launches, want "
+                             f"{cfg.n_layers} x {n_requests} prefills")
+    if not all(r.done and len(r.out) == max_new for r in reqs):
+        raise AssertionError("batcher: a request did not finish")
+    generated = sum(len(r.out) for r in reqs)
+    rec = {"requests": n_requests, "slots": slots, "max_len": max_len,
+           "prompt_tokens": int(lens.sum()), "generated": generated,
+           "steps": steps, "wall_ms": wall * 1e3,
+           "generated_tokens_per_s": generated / wall,
+           "mean_ttft_ms": 1e3 * float(np.mean(list(ttft.values()))),
+           "max_ttft_ms": 1e3 * max(ttft.values()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "attention_launches": launches}
+    log("batcher", json.dumps(rec))
+    return rec
+
+
+def check_logits(params, cfg, prompts):
+    """Prefill's last-position logits and one decode step's logits against
+    `lm_forward` on the same tokens (bf16, LOGIT_RTOL of the largest
+    reference logit)."""
+    from repro_torch.models import transformer as tfm
+    out = {}
+    with torch.no_grad():
+        logits, cache = tfm.prefill(params, prompts, cfg,
+                                    max_len=prompts.shape[1] + 1)
+        full = tfm.lm_forward(params, prompts, cfg)[:, -1]
+        out["prefill"] = (logits, full)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        step, _ = tfm.decode_step(params, cache, tok, cfg)
+        longer = torch.cat([prompts, tok[:, None].to(prompts.dtype)], 1)
+        out["decode"] = (step, tfm.lm_forward(params, longer, cfg)[:, -1])
+    rec = {}
+    for name, (got, want) in out.items():
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        rec[name] = {"max_abs_err": err, "max_abs_ref": scale,
+                     "argmax_agree": agree}
+        if not (torch.isfinite(got).all() and err <= LOGIT_RTOL * scale):
+            raise AssertionError(f"{name} logits vs lm_forward: {err} > "
+                                 f"{LOGIT_RTOL} x {scale}")
+    log("logit_check", json.dumps(rec))
+    return rec
+
+
+def check_f32_batcher(cfg):
+    """Full width in float32, TF32 off: three short requests through the
+    batcher give exactly the tokens of offline greedy generation through
+    `lm_forward` (the invariant of tests/test_serving.py)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ContinuousBatcher, Request
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tfm.init_lm(cfg32, torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 7)]
+    sched = ContinuousBatcher(params, cfg32, batch_slots=2, max_len=32)
+    reqs = [Request(uid=i, prompt=p, max_new=6)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    for r, p in zip(reqs, prompts):
+        toks = p.tolist()
+        with torch.no_grad():
+            for _ in range(6):
+                logits = tfm.lm_forward(params, torch.tensor(
+                    [toks], device="cuda"), cfg32)
+                toks.append(int(torch.argmax(logits[0, -1])))
+        if r.out != toks[len(p):]:
+            raise AssertionError(f"f32 batcher request {r.uid}: {r.out} != "
+                                 f"offline {toks[len(p):]}")
+    log(f"f32_batcher: {len(reqs)} requests equal to offline greedy "
+        "generation")
+    del params, sched
+    torch.cuda.empty_cache()
+
+
+def lm_serving_phase():
+    """Full-width smollm-135m through the serve flow and the batcher; the
+    attention kernel's count is set to 0 just before and read just after,
+    and returned."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import transformer as tfm
+    cfg, _ = get_config("smollm-135m")
+    params = tfm.init_lm(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    # warm-up outside the counted run: allocator, cuBLAS handles
+    greedy_generate(params, cfg, torch.zeros((4, 128), dtype=torch.int64,
+                                             device="cuda"), 3)
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    _, prompts = serve_flow(params, cfg, batch=4, prompt_len=2048, gen=33)
+    batcher_run(params, cfg, n_requests=16, slots=8, max_len=2112, lo=128,
+                hi=2048, max_new=32)
+    launches = fa.LAUNCHES
+    log(f"lm_path_s={time.perf_counter() - t0:.3f} "
+        f"attention_launches={launches}")
+    if launches != cfg.n_layers * (1 + 16):
+        raise AssertionError(f"LM path: {launches} attention launches")
+    check_logits(params, cfg, prompts)
+    del params
+    torch.cuda.empty_cache()
+    check_f32_batcher(cfg)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -403,12 +700,19 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import segment_combine as sc
 
+    from repro_torch.kernels import flash_attention as fa
+    # float32 parity is asserted below: no TF32 anywhere (the defaults, set)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     smi = nvidia_smi_line()
     log("device:", torch.cuda.get_device_name(0), "|", smi)
     log("torch", torch.__version__, "cuda", torch.version.cuda)
 
     t0 = time.perf_counter()
-    _build.load("segment_combine")
+    names = ("segment_combine", "flash_attention")
+    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
+        list(pool.map(_build.load, names))
     log(f"build_s={time.perf_counter() - t0:.3f}")
 
     graph, ugraph, part, upart, source, sources = build_inputs(args.scale)
@@ -430,6 +734,11 @@ def main() -> int:
             raise AssertionError(f"the {route} route launched no kernel")
     check_lanes(part, sources, multi, single0)
     log("main_path", json.dumps(runs))
+    del graph, ugraph, part, upart, multi, single0, ref
+    torch.cuda.empty_cache()
+
+    attn = attention_kernel_phase(args.reps)
+    attn_launches = lm_serving_phase()
 
     kernels = []
     for route, case in (("dense", "dense_D1_sum"), ("tile", "tile_D1_min")):
@@ -443,6 +752,14 @@ def main() -> int:
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": "bytes",
             "library_ms": rec["library_ms"]})
+    rec = attn[0]                      # smollm-135m's prefill shape
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES, "launches": attn_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in attn),
+        "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,11 @@
-"""Workload configuration dataclasses of the port (graph family only)."""
+"""Workload configuration dataclasses of the port: the graph family and the
+dense LM family (the counterpart of `repro/configs/base.py`)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -13,3 +17,64 @@ class GraphWorkloadConfig:
     edge_factor: int = 16
     max_steps: int = 30
     exchange: str = "agent"
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """A decoder-only LM, with the fields of the JAX package's `LMConfig`.
+
+    `q_chunk`/`kv_chunk`, `remat*` and `seq_shard_activations` are kept so
+    that a config means the same in both packages; the port's attention runs
+    at the CUDA kernel's own tile sizes and has no remat or sharding yet.
+    """
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    activation: str = "silu"
+    gated: bool = True
+    rope_theta: float = 10000.0
+    moe: Optional[MoESpec] = None
+    dtype: str = "bfloat16"
+    attention_impl: str = "chunked"   # reference | chunked
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    remat: bool = True
+    remat_block: int = 1
+    seq_shard_activations: bool = True
+    tie_embeddings: bool = False
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 128 (Megatron-style); the
+        padded logit columns are masked in the forward pass."""
+        return -(-self.vocab // 128) * 128
+
+    def param_count(self) -> int:
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        qkv = d * self.n_heads * self.d_head + 2 * d * self.n_kv * self.d_head
+        attn = qkv + self.n_heads * self.d_head * d
+        if self.moe:
+            e = self.moe
+            ff = e.n_experts * e.d_ff_expert * d * (3 if self.gated else 2)
+            ff += d * e.n_experts  # router
+        else:
+            ff = d * f * (3 if self.gated else 2)
+        per_layer = attn + ff + 2 * d
+        return self.n_layers * per_layer + 2 * v * d + d

@@ -1,9 +1,10 @@
-"""Device-dispatching entry points to the combine kernel.
+"""Device-dispatching entry points to the port's kernels.
 
 The route is chosen by where the tensors lie: a CUDA tensor always runs the
-hand-written kernel (`segment_combine.segment_combine_cuda`), a CPU tensor
-the plain PyTorch version.  There is no switch and no fallback; the JAX
-package's `use_pallas=True/False` has no counterpart here.  Payloads may be
+hand-written kernel (`segment_combine.segment_combine_cuda`,
+`flash_attention.flash_attention_cuda`), a CPU tensor the plain PyTorch
+version.  There is no switch and no fallback; the JAX package's
+`use_pallas=True/False` has no counterpart here.  Combine payloads may be
 `[E]` or `[E, *payload]`; they are flattened to the kernel's `[E, D]`.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import segment_combine as sc
 
 
@@ -52,3 +54,14 @@ def tile_segment_combine(msgs: torch.Tensor, dst: torch.Tensor,
         return sc.tile_segment_combine_plain(msgs, dst, num_segments, op)
     out = sc.tile_segment_combine_cuda(_flat(msgs), dst, num_segments, op)
     return _unflat(out, msgs, num_segments)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA attention forward: q `[B, Sq, Kv, G, H]`, k/v `[B, Sk, Kv, H]`
+    -> `[B, Sq, Kv, G, H]`.  Query head `(kv, g)` attends to kv head `kv`;
+    the kernel reads it in place, with no broadcast copy of k/v."""
+    if not q.is_cuda:
+        return fa.flash_attention_plain(q, k, v, causal)
+    return fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal)

@@ -61,3 +61,42 @@ def test_cuda_entry_points_raise_without_a_card():
                                  "scatter_data": np.zeros(4, np.float32),
                                  "active_scatter": np.zeros(4, bool)})
     assert DevicePartition.from_graph(g, device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_raise_without_a_card():
+    """`init_lm`, `params_from_numpy`, `init_cache`, `ContinuousBatcher`
+    and the serve launcher default to CUDA and refuse it without a card;
+    `device="cpu"` runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: CUDA is a valid request here")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ContinuousBatcher
+    cfg = serve.reduced_lm_config(get_config("smollm-135m")[0], layers=1,
+                                  d_model=32, n_heads=2, n_kv=1, d_head=16,
+                                  d_ff=32, vocab=128)
+    params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tree = {"embed": params.embed.numpy(), "ln_out": params.ln_out.numpy(),
+            "head": params.head.numpy(),
+            "layers": {n: np.stack([getattr(params.layers[0], n).numpy()])
+                       for n in ("ln_attn", "wq", "wk", "wv", "wo",
+                                 "ln_ffn")}}
+    tree["layers"]["ffn"] = {n: np.stack([w.numpy()]) for n, w in
+                             params.layers[0].ffn.items()}
+    calls = (lambda: tfm.init_lm(cfg, torch.Generator()),
+             lambda: tfm.init_lm(cfg, torch.Generator(), device="cuda:0"),
+             lambda: tfm.params_from_numpy(tree, cfg),
+             lambda: tfm.init_cache(cfg, 2, 8),
+             lambda: ContinuousBatcher(params, cfg, 2, 8),
+             lambda: serve.main(["--batch", "1", "--gen", "2"]))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    back = tfm.params_from_numpy(tree, cfg, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(back.parameters(),
+                                                 params.parameters()))
+    assert tfm.init_cache(cfg, 2, 8, device="cpu")["k"].device.type == "cpu"
+    assert ContinuousBatcher(params, cfg, 2, 8, device="cpu").B == 2
+    with pytest.raises(ValueError, match="params lie on"):
+        ContinuousBatcher(params, cfg, 2, 8, device="meta")

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the PyTorch port's main path on one NVIDIA card.
+"""Device-time breakdown of the PyTorch port's main paths on one NVIDIA card.
 
-  python3 tools/profile_torch_main_path.py [--scale 22]
+  python3 tools/profile_torch_main_path.py [--workload all|graph|lm]
+                                           [--scale 22]
 
-Builds the inputs of `chip_smoke.py` with its own `build_inputs` (Graph500
-R-MAT a=0.57, b=c=0.19, edge factor 16, seed 0, weights; both partitions on
-the card; the same traversal sources), runs each
-program of the main path once to warm up, then once under
-`torch.profiler`.  For each program it prints one JSON line: the wall time
-of the traced run, the device-busy time (the union of its kernels'
-intervals), the idle share `1 - busy / wall`, and device time grouped by
-kind of kernel (the combine kernel, gathers, sorts, other).  Tracing adds
-host time, so the wall times here are not the end-to-end numbers; those
-come from `chip_smoke.py`, run without the profiler.
+graph: builds the inputs of `chip_smoke.py` with its own `build_inputs`
+(Graph500 R-MAT a=0.57, b=c=0.19, edge factor 16, seed 0, weights; both
+partitions on the card; the same traversal sources) and profiles each
+program of the graph path.
+lm: full-width smollm-135m (bf16, random weights from a CUDA generator
+seeded 0) as `chip_smoke.py` serves it: one prefill of B=4 x 2048 tokens,
+8 decode steps of B=4 after it, and the continuous batcher serving 16
+requests (prompt lengths uniform in 128-2048, numpy seed 0, 32 new tokens
+each, 8 slots, max_len 2112).
+
+Each program runs once to warm up, then once under `torch.profiler`.  For
+each it prints one JSON line: the wall time of the traced run, the
+device-busy time (the union of its kernels' intervals), the idle share
+`1 - busy / wall`, and device time grouped by kind of kernel (the combine
+and attention kernels, matmuls, gathers and index writes, sorts, other).  Tracing
+adds host time, so the wall times here are not the end-to-end numbers;
+those come from `chip_smoke.py`, run without the profiler.
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # kernel-name fragment -> group; the first match wins
 GROUPS = (("segment_combine_kernel", "combine_kernel"),
+          ("flash_attention_kernel", "attention_kernel"),
+          ("gemm", "matmul"), ("nvjet", "matmul"), ("gemv", "matmul"),
           ("index", "gather"), ("gather", "gather"),
           ("sort", "sort"), ("radix", "sort"), ("Radix", "sort"),
           ("nonzero", "compact"), ("scan", "compact"))
@@ -83,19 +93,44 @@ def profile(name, fn):
     print(json.dumps(rec), flush=True)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scale", type=int, default=22)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile: needs an NVIDIA card", file=sys.stderr)
-        return 1
-    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+def profile_lm():
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import ContinuousBatcher, Request
+    cfg, _ = get_config("smollm-135m")
+    params = tfm.init_lm(cfg, torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2048))).cuda()
+    profile("lm_prefill", lambda: tfm.prefill(params, prompts, cfg,
+                                              max_len=2048 + 33))
+    _, cache = tfm.prefill(params, prompts, cfg, max_len=2048 + 33)
+    tok = torch.zeros(4, dtype=torch.int32, device="cuda")
+
+    def decode8():
+        cache["len"].fill_(2048)
+        for _ in range(8):
+            tfm.decode_step(params, cache, tok, cfg)
+    profile("lm_decode_x8", decode8)
+
+    lens = rng.integers(128, 2049, 16)
+    prompts16 = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                 for n in lens]
+
+    def serve16():
+        sched = ContinuousBatcher(params, cfg, batch_slots=8, max_len=2112)
+        for i, p in enumerate(prompts16):
+            sched.submit(Request(uid=i, prompt=p, max_new=32))
+        sched.run()
+    profile("lm_batcher_16", serve16)
+
+
+def profile_graph(scale: int) -> None:
     from chip_smoke import build_inputs
     from repro_torch.core import algorithms
     from repro_torch.core.engine import GREEngine
 
-    _, _, part, upart, source, sources = build_inputs(args.scale)
+    _, _, part, upart, source, sources = build_inputs(scale)
 
     def run(program, p, src=None, frontier="auto", steps=10_000):
         eng = GREEngine(program, frontier=frontier)
@@ -109,6 +144,22 @@ def main() -> int:
                              "dense"))
     profile("cc", run(algorithms.cc_program(), upart))
     profile("bfs_x32", run(algorithms.bfs_program(32), part, sources))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", choices=("all", "graph", "lm"),
+                    default="all")
+    ap.add_argument("--scale", type=int, default=22)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    if args.workload in ("all", "lm"):
+        profile_lm()
+    if args.workload in ("all", "graph"):
+        profile_graph(args.scale)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
     return 0
 
