@@ -659,8 +659,9 @@ def lm_serving_phase():
     from repro_torch.models import transformer as tfm
     cfg, _ = get_config("smollm-135m")
     params = tfm.init_lm(cfg, generator=torch.Generator("cuda").manual_seed(0))
-    # warm-up outside the counted run: allocator, cuBLAS handles
-    greedy_generate(params, cfg, torch.zeros((4, 128), dtype=torch.int64,
+    # warm-up at the serve flow's shape, outside the counted run: allocator
+    # blocks and cuBLAS choices, so the timed prefill is the steady state
+    greedy_generate(params, cfg, torch.zeros((4, 2048), dtype=torch.int64,
                                              device="cuda"), 3)
     t0 = time.perf_counter()
     fa.reset_launches()

@@ -68,9 +68,11 @@ def _check(cond: bool, msg: str) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous CUDA tensors q `[B, Sq, Kv, G,
-    H]` and k, v `[B, Sk, Kv, H]`, float32 or bfloat16, H in {16, 32, 64,
-    128}.  Returns o `[B, Sq, Kv, G, H]` in q's dtype.
+    """Launch the CUDA kernel on contiguous, 16-byte aligned CUDA tensors
+    q `[B, Sq, Kv, G, H]` and k, v `[B, Sk, Kv, H]`, float32 or bfloat16, H
+    in {16, 32, 64, 128}.  Returns o `[B, Sq, Kv, G, H]` in q's dtype.
+    bfloat16 runs on the tensor cores (`mma.sync`), float32 on CUDA-core
+    FMAs (no TF32).
 
     Raises on anything else, before any build or launch.
     """
@@ -92,6 +94,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(max(q.numel(), k.numel()) < 2**31, "more than 2**31 - 1 elements")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.is_contiguous(), f"{name} must be contiguous")
+        # the kernel reads 16-byte vectors
+        _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     devices = {q.device, k.device, v.device}
     _check(len(devices) == 1 and q.device.type == "cuda",
            f"needs CUDA tensors on one device, got {sorted(map(str, devices))}"

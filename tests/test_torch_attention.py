@@ -193,6 +193,8 @@ BAD_INPUTS = {
     "non_contiguous_q": (lambda q, k, v: (q.transpose(1, 2).contiguous()
                                           .transpose(1, 2), k, v),
                          "contiguous"),
+    "misaligned_q": (lambda q, k, v: (torch.zeros(q.numel() + 1)[1:].view(
+        q.shape), k, v), "16-byte aligned"),
     "cpu_tensors": (lambda q, k, v: (q, k, v), "CUDA"),
 }
 

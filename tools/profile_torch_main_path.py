@@ -36,7 +36,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # kernel-name fragment -> group; the first match wins
 GROUPS = (("segment_combine_kernel", "combine_kernel"),
-          ("flash_attention_kernel", "attention_kernel"),
+          ("flash_attention_", "attention_kernel"),   # f32 and bf16
           ("gemm", "matmul"), ("nvjet", "matmul"), ("gemv", "matmul"),
           ("index", "gather"), ("gather", "gather"),
           ("sort", "sort"), ("radix", "sort"), ("Radix", "sort"),
