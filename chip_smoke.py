@@ -51,7 +51,8 @@
    heads over 3 kv heads, bf16; random weights from a CUDA generator
    seeded 0), with the attention kernel's launch count set to 0 before and
    read after: the `launch/serve.py` flow (batched prefill B=4 of 2048
-   tokens, then 32 greedy decode steps), then `ContinuousBatcher(8 slots,
+   tokens, then 32 greedy decode steps; one warm-up run of the flow at
+   that shape comes first, uncounted), then `ContinuousBatcher(8 slots,
    max_len 2112)` serving 16 requests with prompt lengths uniform in
    128-2048 (numpy seed 0) and 32 new tokens each.  Each run must launch
    the kernel 30 times per prefill.  Then: prefill's last-position logits
