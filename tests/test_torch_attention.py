@@ -6,8 +6,10 @@ within 1e-6, since they do the same float32 operations in the same order
 and differ only in the last bits of transcendental functions and matmul
 summation; the full-matrix and flash attention paths within 2e-5 (the JAX
 package's own tolerance for flash vs reference, tests/test_attention.py);
-decode attention within 1e-5 (tests/test_attention.py).  bf16 at 3e-2
-(tests/test_kernels.py).  The CUDA kernel itself is held against the plain
+decode attention within 1e-5 (tests/test_attention.py).  bf16 within
+two bf16 ulps of each element plus 3% of its row's RMS
+(`torch_parity.bf16_attention_error_ratio`; the JAX package's 3e-2 is
+as large as the outputs of late causal rows).  The CUDA kernel itself is held against the plain
 version by `chip_smoke.py` on the card, and by the `cuda`-marked test here
 on a machine that has one.
 """
@@ -27,6 +29,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.nn import attention as tattn
 from repro_torch.nn import ffn as tffn
 from repro_torch.nn import layers as tlayers
+from torch_parity import bf16_attention_error_ratio
 
 
 def _rand(rng, shape, dtype=np.float32):
@@ -167,9 +170,8 @@ def test_ops_flash_attention_bf16_matches_pallas():
     assert got.dtype == torch.bfloat16
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
     want = jops.flash_attention(jq, jk, jv, block_q=64, block_k=64)
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want, np.float32), rtol=3e-2,
-                               atol=3e-2)
+    assert bf16_attention_error_ratio(got.float(), np.asarray(
+        want, np.float32)) <= 1.0
 
 
 # ----------------------------------------- the CUDA wrapper's input checks
@@ -226,16 +228,17 @@ def test_cpu_tensors_take_the_plain_version():
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_on_card():
     """On a card: the kernel vs the plain version, f32 (TF32 off) at 2e-5
-    and bf16 at 3e-2, ragged and Sq != Sk included, bitwise run to run."""
+    and bf16 within `bf16_attention_error_ratio`'s limit, ragged and
+    Sq != Sk included, bitwise run to run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [(2, 128, 128, 2, 2, 64, True, torch.float32, 2e-5),
-             (1, 64, 192, 2, 2, 32, False, torch.float32, 2e-5),
-             (1, 100, 100, 3, 3, 16, True, torch.float32, 2e-5),
-             (2, 300, 300, 3, 3, 64, True, torch.bfloat16, 3e-2),
-             (1, 130, 130, 2, 2, 128, True, torch.bfloat16, 3e-2)]
-    for b, sq, sk, kv, g, h, causal, dt, tol in cases:
+    cases = [(2, 128, 128, 2, 2, 64, True, torch.float32),
+             (1, 64, 192, 2, 2, 32, False, torch.float32),
+             (1, 100, 100, 3, 3, 16, True, torch.float32),
+             (2, 300, 300, 3, 3, 64, True, torch.bfloat16),
+             (1, 130, 130, 2, 2, 128, True, torch.bfloat16)]
+    for b, sq, sk, kv, g, h, causal, dt in cases:
         q, k, v = (torch.from_numpy(a).to("cuda", dt)
                    for a in _qkv(sq, b, sq, sk, kv, g, h))
         before = fa.LAUNCHES
@@ -245,6 +248,8 @@ def test_cuda_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         assert fa.LAUNCHES == before + 2
         assert torch.equal(a, b2)
-        np.testing.assert_allclose(a.float().cpu().numpy(),
-                                   want.float().cpu().numpy(), rtol=tol,
-                                   atol=tol)
+        if dt == torch.bfloat16:
+            assert bf16_attention_error_ratio(a.float(), want.float()) <= 1.0
+        else:
+            np.testing.assert_allclose(a.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=2e-5, atol=2e-5)

@@ -38,3 +38,19 @@ def to_graph(graph, cls):
     """Re-wrap a `Graph` of one package as the other package's `Graph`."""
     return cls(graph.num_vertices, graph.src.copy(), graph.dst.copy(),
                {k: v.copy() for k, v in graph.edge_props.items()})
+
+
+# bf16 attention outputs: two bf16 ulps of each element (2**-6 of it) plus
+# 3% of the RMS of its row (the head dim), which covers elements that
+# cancel to near 0; the same limit as chip_smoke.py's, whose readings of
+# sound kernels and of planted faults PERF.md records.
+BF16_RTOL, BF16_ROW_ATOL = 2.0 ** -6, 3e-2
+
+
+def bf16_attention_error_ratio(got, want):
+    """Worst |got - want| over its bf16 limit; above 1 fails."""
+    got = np.asarray(_np(got), np.float32)
+    want = np.asarray(_np(want), np.float32)
+    rms = np.sqrt(np.mean(want ** 2, axis=-1, keepdims=True))
+    limit = BF16_RTOL * np.abs(want) + BF16_ROW_ATOL * rms
+    return float(np.max(np.abs(got - want) / np.maximum(limit, 1e-30)))

@@ -1,14 +1,13 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the PyTorch port's main paths on one NVIDIA card.
 
-  python3 tools/profile_torch_main_path.py [--workload all|graph|lm]
-                                           [--scale 22]
+  python3 tools/profile_torch_main_path.py [--scale 22]
 
-graph: builds the inputs of `chip_smoke.py` with its own `build_inputs`
+Graph path: builds the inputs of `chip_smoke.py` with its own `build_inputs`
 (Graph500 R-MAT a=0.57, b=c=0.19, edge factor 16, seed 0, weights; both
 partitions on the card; the same traversal sources) and profiles each
 program of the graph path.
-lm: full-width smollm-135m (bf16, random weights from a CUDA generator
+LM path: full-width smollm-135m (bf16, random weights from a CUDA generator
 seeded 0) as `chip_smoke.py` serves it: one prefill of B=4 x 2048 tokens,
 8 decode steps of B=4 after it, and the continuous batcher serving 16
 requests (prompt lengths uniform in 128-2048, numpy seed 0, 32 new tokens
@@ -148,18 +147,14 @@ def profile_graph(scale: int) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--workload", choices=("all", "graph", "lm"),
-                    default="all")
     ap.add_argument("--scale", type=int, default=22)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: needs an NVIDIA card", file=sys.stderr)
         return 1
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    if args.workload in ("all", "lm"):
-        profile_lm()
-    if args.workload in ("all", "graph"):
-        profile_graph(args.scale)
+    profile_lm()
+    profile_graph(args.scale)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
     return 0
 
