@@ -11,25 +11,28 @@ frontier wastes 99% of its gather bandwidth.  This module compacts instead:
      through the position index `csr_eidx`, so destinations and edge props
      read the canonical dst-sorted columns;
   3. the tile's messages feed the tile route of the combine kernel
-     (`kernels.ops.tile_segment_combine`: stable sort by dst, row pointer,
-     kernel).  Invalid lanes carry identity messages and the
-     `num_segments` destination sentinel, which the combine drops.
+     (`kernels.ops.tile_segment_combine`: compaction of the valid lanes in
+     lane order, a stable sort of only those by dst, row pointer, kernel).
+     Invalid lanes carry identity messages and the `num_segments`
+     destination sentinel, which the compaction drops.  The count of valid
+     lanes, the live out-edges, comes with the frontier counts, so the
+     route sizes its compacted lanes with no host sync of its own.
 
 The default path is degree-BUCKETED (`bucketed_scatter_combine`): each
 degree bucket gathers its own `[cap_b, max_deg_b]` tile, so a hub does not
 pad every frontier slot to its degree.  One padded `[cap, max_deg]` tile
 (`compact_scatter_combine`) is kept as the "flat" strategy.
 
-Strategy selection is a host branch per superstep on the live counts, all
-read in one transfer: dense above the total capacity (the density
-crossover), compacted below.  A bucket whose live members exceed `cap_b`
-degrades to a dense scan restricted to that bucket's sources; no vertex is
-ever dropped.
+Strategy selection is a host branch per superstep on the live counts and
+their out-edge totals (`frontier_counts`), all read in one transfer: dense
+above the total capacity (the density crossover), compacted below.  A
+bucket whose live members exceed `cap_b` degrades to a dense scan
+restricted to that bucket's sources; no vertex is ever dropped.
 """
 from __future__ import annotations
 
 import functools
-from typing import TYPE_CHECKING, Optional, Sequence
+from typing import TYPE_CHECKING, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -136,19 +139,24 @@ def frontier_tile(program: "VertexProgram", part: "DevicePartition",
 
 def compact_scatter_combine(program: "VertexProgram", part: "DevicePartition",
                             state: "EngineState", num_segments: int,
-                            cap: int, max_deg: Optional[int] = None,
+                            cap: int, live_edges: int,
+                            max_deg: Optional[int] = None,
                             frontier_mask: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """⊕-combine emitted only from the ≤ `cap` live slots' out-edges.
 
     Equal to the dense masked scan whenever the live mask fits in `cap`
     (bitwise for min/max; sums up to float reorder).  Callers guard
-    `|frontier| <= cap`.
+    `|frontier| <= cap`.  `live_edges`, the live slots' out-edge total
+    (`frontier_counts`), is then the tile's count of lanes routed to a
+    segment whenever the segment space holds every slot, and is passed on
+    to the tile route.
     """
     msgs, dst = frontier_tile(program, part, state, num_segments, cap,
                               max_deg, frontier_mask)
+    valid = live_edges if num_segments >= part.num_slots else None
     return kernel_ops.tile_segment_combine(msgs, dst, num_segments,
-                                           program.monoid.name)
+                                           program.monoid.name, valid)
 
 
 def dense_masked_combine(program: "VertexProgram", part: "DevicePartition",
@@ -168,27 +176,53 @@ def dense_masked_combine(program: "VertexProgram", part: "DevicePartition",
                                       p.monoid.name, seg_ptr=part.seg_ptr)
 
 
-def frontier_counts(part: "DevicePartition", active: torch.Tensor) -> list:
-    """`[|F|, |F ∩ bucket 0|, |F ∩ bucket 1|, ...]` in one host transfer."""
-    nb = len(part.bucket_max_deg)
-    per = torch.zeros(nb + 1, dtype=torch.int64, device=active.device)
-    per.scatter_add_(0, (part.bucket_id + 1).to(torch.int64),
-                     active.to(torch.int64))
-    return torch.cat([active.sum().reshape(1), per[1:]]).tolist()
+class FrontierCounts(NamedTuple):
+    """The live frontier, read in one host transfer: `live` = |F|, `edges`
+    = the out-edges of F, and per degree bucket b the live `members` |F ∩
+    b| and their out-edges `bucket_edges`."""
+
+    live: int
+    edges: int
+    members: tuple
+    bucket_edges: tuple
+
+
+def frontier_counts(part: "DevicePartition",
+                    active: torch.Tensor) -> FrontierCounts:
+    """Live slots and their out-edge totals, overall and per bucket (none
+    when the partition has no buckets), in one host transfer."""
+    nb = len(part.bucket_max_deg) if part.bucket_id is not None else 0
+    act = active.to(torch.int64)
+    deg = (part.csr_indptr[1:] - part.csr_indptr[:-1]).to(torch.int64)
+    edges = act * deg
+    cols = [act.sum().reshape(1), edges.sum().reshape(1)]
+    if nb:
+        # a histogram over nb + 1 bins, not an atomic scatter onto them (which
+        # serialises every slot on a handful of addresses); the float64
+        # weights are integers below 2**53, so the sums are exact
+        key = part.bucket_id + 1
+        for w in (act, edges):
+            cols.append(torch.bincount(key, weights=w.to(torch.float64),
+                                       minlength=nb + 1)[1:].to(torch.int64))
+    vals = torch.cat(cols).tolist()
+    return FrontierCounts(vals[0], vals[1], tuple(vals[2:2 + nb]),
+                          tuple(vals[2 + nb:]))
 
 
 def bucketed_scatter_combine(program: "VertexProgram",
                              part: "DevicePartition", state: "EngineState",
                              num_segments: int, caps: Sequence[int],
-                             counts: Sequence[int]) -> torch.Tensor:
+                             counts: Sequence[int], edges: Sequence[int]
+                             ) -> torch.Tensor:
     """Degree-bucketed compacted ⊕ over the live frontier.
 
     `bucket_id` partitions the slots with out-edges, so the per-bucket
     partial combines touch every active out-edge exactly once.  Each bucket
     gathers its own tile when its live members fit `cap_b`, else runs a
     bucket-restricted dense scan.  `counts` are the live members per bucket
-    (`frontier_counts(...)[1:]`); a bucket with none contributes the
-    identity and is skipped.
+    (`frontier_counts(...).members`), `edges` their out-edge totals
+    (`.bucket_edges`), which spare each tile route a host sync; a bucket
+    with no live member contributes the identity and is skipped.
     """
     p = program
     partials = []
@@ -198,8 +232,8 @@ def bucketed_scatter_combine(program: "VertexProgram",
         mask_b = state.active_scatter & (part.bucket_id == b)
         if counts[b] <= cap_b:
             partials.append(compact_scatter_combine(
-                program, part, state, num_segments, cap_b, max_deg=max_deg_b,
-                frontier_mask=mask_b))
+                program, part, state, num_segments, cap_b, edges[b],
+                max_deg=max_deg_b, frontier_mask=mask_b))
         else:
             partials.append(dense_masked_combine(program, part, state,
                                                  num_segments, mask_b))
@@ -221,13 +255,14 @@ def frontier_scatter_combine(program: "VertexProgram",
     frontier exceeds the total compacted capacity.
     """
     kind, caps = plan
-    if kind == "flat":
-        if int(state.active_scatter.sum()) <= caps:
-            return compact_scatter_combine(program, part, state,
-                                           num_segments, caps)
-        return dense_fn()
     counts = frontier_counts(part, state.active_scatter)
-    if counts[0] <= sum(caps):
+    if kind == "flat":
+        if counts.live <= caps:
+            return compact_scatter_combine(program, part, state,
+                                           num_segments, caps, counts.edges)
+        return dense_fn()
+    if counts.live <= sum(caps):
         return bucketed_scatter_combine(program, part, state, num_segments,
-                                        caps, counts[1:])
+                                        caps, counts.members,
+                                        counts.bucket_edges)
     return dense_fn()

@@ -47,12 +47,17 @@ def segment_combine(msgs: torch.Tensor, dst: torch.Tensor, num_segments: int,
 
 
 def tile_segment_combine(msgs: torch.Tensor, dst: torch.Tensor,
-                         num_segments: int, op: str = "sum") -> torch.Tensor:
+                         num_segments: int, op: str = "sum",
+                         valid: Optional[int] = None) -> torch.Tensor:
     """⊕ over a gathered tile with unsorted `dst` (the tile route); lanes
-    with `dst >= num_segments` are dropped."""
+    with `dst >= num_segments` are dropped.  `valid`, when the caller knows
+    it, is the count of the other lanes: the route then sizes its compacted
+    lanes with no host sync."""
     if not msgs.is_cuda:
-        return sc.tile_segment_combine_plain(msgs, dst, num_segments, op)
-    out = sc.tile_segment_combine_cuda(_flat(msgs), dst, num_segments, op)
+        return sc.tile_segment_combine_plain(msgs, dst, num_segments, op,
+                                             valid)
+    out = sc.tile_segment_combine_cuda(_flat(msgs), dst, num_segments, op,
+                                       valid)
     return _unflat(out, msgs, num_segments)
 
 

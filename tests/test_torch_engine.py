@@ -149,6 +149,47 @@ def test_cpu_run_launches_no_kernel(part):
     assert LAUNCHES == before
 
 
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.4, 1.0])
+def test_frontier_counts_match_numpy(part, density):
+    """`frontier_counts`' live members and out-edge totals, overall and per
+    degree bucket, equal a numpy count over the CSR degrees."""
+    from repro_torch.core import frontier
+    rng = np.random.default_rng(int(density * 100))
+    active = rng.random(part.num_slots) < density
+    got = frontier.frontier_counts(part, torch.from_numpy(active))
+    deg = np.diff(part.csr_indptr.numpy()).astype(np.int64)
+    bucket = part.bucket_id.numpy()
+    assert got.live == int(active.sum())
+    assert got.edges == int(deg[active].sum())
+    nb = len(part.bucket_max_deg)
+    assert got.members == tuple(int((active & (bucket == b)).sum())
+                                for b in range(nb))
+    assert got.bucket_edges == tuple(int(deg[active & (bucket == b)].sum())
+                                     for b in range(nb))
+
+
+@pytest.mark.parametrize("frontier", ["compact", "flat"])
+def test_tile_route_gets_the_valid_lane_count(part, frontier, monkeypatch):
+    """Every compacted tile reaches the tile route with its count of lanes
+    routed to a segment, taken from the frontier counts (no sync of its
+    own), and that count is the tile's."""
+    from repro_torch.core import frontier as fr
+    seen = []
+    real = fr.kernel_ops.tile_segment_combine
+
+    def spy(msgs, dst, num_segments, op, valid=None):
+        seen.append((valid, int((dst < num_segments).sum())))
+        return real(msgs, dst, num_segments, op, valid)
+
+    monkeypatch.setattr(fr.kernel_ops, "tile_segment_combine", spy)
+    eng = GREEngine(algorithms.bfs_program(), frontier=frontier)
+    out = eng.run(part, eng.init_state(part, source=0), max_steps=50)
+    dense = GREEngine(algorithms.bfs_program(), frontier="dense")
+    want = dense.run(part, dense.init_state(part, source=0), max_steps=50)
+    assert torch.equal(out.vertex_data, want.vertex_data)
+    assert seen and all(v == n for v, n in seen), seen
+
+
 # ------------------------------------------------------ parity with JAX
 @pytest.fixture(scope="module")
 def parts(graph):
@@ -313,7 +354,9 @@ def test_bucket_overflow_mixed_branches_equal_dense_and_jax(monkeypatch):
                         lambda *a: calls.append(1) or real(*a))
     counts = frontier.frontier_counts(part, active)
     got = frontier.bucketed_scatter_combine(prog, part, state,
-                                            part.num_slots, caps, counts[1:])
+                                            part.num_slots, caps,
+                                            counts.members,
+                                            counts.bucket_edges)
     assert calls == [1]                      # only the leaves' bucket
     dense = eng.dense_scatter_combine(part, state, part.num_slots)
     assert torch.equal(got, dense)

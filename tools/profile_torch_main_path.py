@@ -17,7 +17,8 @@ Each program runs once to warm up, then once under `torch.profiler`.  For
 each it prints one JSON line: the wall time of the traced run, the
 device-busy time (the union of its kernels' intervals), the idle share
 `1 - busy / wall`, and device time grouped by kind of kernel (the combine
-and attention kernels, matmuls, gathers and index writes, sorts, other).  Tracing
+and attention kernels, matmuls, gathers and index writes, sorts and the
+tile route's lane compaction, other).  Tracing
 adds host time, so the wall times here are not the end-to-end numbers;
 those come from `chip_smoke.py`, run without the profiler.
 """
@@ -33,8 +34,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# kernel-name fragment -> group; the first match wins
-GROUPS = (("segment_combine_kernel", "combine_kernel"),
+# kernel-name fragment -> group; the first match wins.  The combine
+# kernel's passes (partition, combine, carry fold) are "combine_kernel"; the
+# tile route's lane compaction, which took the place of its whole-tile sort,
+# is "sort" with the sort of the compacted lanes.
+GROUPS = (("merge_path_partition", "combine_kernel"),
+          ("combine_d1_kernel", "combine_kernel"),
+          ("combine_cols_kernel", "combine_kernel"),
+          ("fold_carries", "combine_kernel"),
+          ("compact_count", "sort"), ("compact_scan", "sort"),
+          ("compact_write", "sort"),
           ("flash_attention_", "attention_kernel"),   # f32 and bf16
           ("gemm", "matmul"), ("nvjet", "matmul"), ("gemv", "matmul"),
           ("index", "gather"), ("gather", "gather"),
