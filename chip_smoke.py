@@ -47,8 +47,13 @@
    version at smollm-135m's prefill shape (B=4, S=2048, 3 kv heads x 3,
    H=64, causal, bf16), a ragged causal length (S=1000, bf16), float32
    (2, 512, 2, 2, 64), non-causal Sq != Sk (1, 64/192, 2, 2, 32, float32)
-   and H=128 (bf16).  Tolerances: float32 within 2e-5 (the JAX package's
-   own, tests/test_kernels.py; TF32 is off and the kernel uses none);
+   and H=128 (bf16), and the corners of the bf16 kernel's design: non-
+   causal Sq != Sk (2, 300/1000, 2, 3, 64), H=16 and H=32, G=1 and G=8
+   (three shares of a kv head's query heads, the last one short), and B=2
+   at a ragged Sq = Sk = 1000 (a TMA map that read past a batch's rows
+   into the next batch would show there).  Tolerances: float32 within
+   2e-5 (the JAX package's own, tests/test_kernels.py; TF32 is off and the
+   kernel uses none);
    bf16, against the plain version on the same bf16 inputs, within two
    bf16 ulps of each element (2**-6 of it) plus 3% of the RMS of its row
    (the head dim): the two round p to bf16 at different scales, and an
@@ -642,20 +647,34 @@ ATTN_CASES = (  # name, B, Sq, Sk, Kv, G, H, causal, dtype
     ("f32", 2, 512, 512, 2, 2, 64, True, torch.float32),
     ("noncausal_sq_ne_sk", 1, 64, 192, 2, 2, 32, False, torch.float32),
     ("h128", 2, 1024, 1024, 2, 4, 128, True, torch.bfloat16),
+    ("bf16_noncausal_sq_ne_sk", 2, 300, 1000, 2, 3, 64, False,
+     torch.bfloat16),
+    ("h16", 2, 512, 512, 2, 2, 16, True, torch.bfloat16),
+    ("h32", 2, 512, 512, 2, 2, 32, True, torch.bfloat16),
+    ("g1", 2, 1024, 1024, 4, 1, 64, True, torch.bfloat16),
+    ("g8", 1, 1024, 1024, 2, 8, 64, True, torch.bfloat16),
+    ("ragged_b2", 2, 1000, 1000, 3, 3, 64, True, torch.bfloat16),
 )
 
 
-def attention_kernel_phase(reps):
+def attention_inputs(b, sq, sk, kv, g, h, dt):
+    """q, k, v of an attention case, from a CUDA generator seeded by its
+    shape."""
+    gen = torch.Generator("cuda").manual_seed(sq + sk + h)
+    q = torch.randn((b, sq, kv, g, h), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, sk, kv, h), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, sk, kv, h), generator=gen, device="cuda").to(dt)
+    return q, k, v
+
+
+def attention_kernel_phase(reps, cases=ATTN_CASES):
     """The attention kernel against its plain version at every case of
-    ATTN_CASES; returns the case records."""
+    `cases`; returns the case records."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     records = []
-    for name, b, sq, sk, kv, g, h, causal, dt in ATTN_CASES:
-        gen = torch.Generator("cuda").manual_seed(sq + sk + h)
-        q = torch.randn((b, sq, kv, g, h), generator=gen, device="cuda").to(dt)
-        k = torch.randn((b, sk, kv, h), generator=gen, device="cuda").to(dt)
-        v = torch.randn((b, sk, kv, h), generator=gen, device="cuda").to(dt)
+    for name, b, sq, sk, kv, g, h, causal, dt in cases:
+        q, k, v = attention_inputs(b, sq, sk, kv, g, h, dt)
         first = fa.flash_attention_cuda(q, k, v, causal)
         second = fa.flash_attention_cuda(q, k, v, causal)
         plain = fa.flash_attention_plain(q, k, v, causal)

@@ -17,31 +17,51 @@
 // place: the wrapper's broadcast copy of k/v (ops.py) is gone.  Any Sq and
 // Sk: a ragged tail is masked here, not padded by the caller.
 //
-// Both kernels: one CTA per (b·kv·g head, 64-row query tile); the query
-// tile and each 64-row K/V tile are staged through shared memory; a loop
-// over kv tiles takes the place of the TPU's sequential grid axis, and
-// under the causal mask it stops at the last tile that holds a visible
-// key, as `pl.when(run)` skips the rest.  The loop starts at the tile that
-// holds key 0, so every row sees a visible key in its first tile and the
-// finite -1e30 mask needs no -inf case.  Sums run in a fixed order, so two
-// launches give the same bits.
-//
-//   bfloat16: tensor cores.  4 warps of 16 query rows; both products are
-//     `mma.sync.m16n8k16` bf16 x bf16 -> f32.  The score fragments are the
-//     A fragments of p·V once rounded to bf16, so p never leaves
-//     registers.  Row max and sum reduce over the 4 lanes of a quad.
-//   float32: CUDA-core FMAs, so no TF32.  8 warps of 8 query rows, tiles
-//     in float32; lane j owns kv columns j, j+32 of the scores (K rows
-//     padded to H+1 floats for distinct banks) and output dims j, j+32, ...
+// Both kernels loop over kv tiles in place of the TPU's sequential grid
+// axis; under the causal mask the loop stops at the last tile that holds a
+// visible key of the CTA's query rows, as `pl.when(run)` skips the rest,
+// and the heaviest query tiles are launched first.  The loop starts at the
+// tile that holds key 0, so every row sees a visible key in its first
+// tile and the finite -1e30 mask needs no -inf case.  Sums run in a fixed
+// order, so two launches give the same bits.
 //
 // Bound on the card: operations.  4·Sq·Sk·H FLOP per head (halved under
 // the causal mask) against 989 TFLOP/s bf16 dense (67 TFLOP/s float32);
 // the bytes (q, k, v and o once each) take less time at 3.35 TB/s for
-// every shape the LM path gives it.  What this simple design leaves on the
-// table: wgmma (the only way to the full bf16 rate) and TMA/cp.async
-// staging that overlaps the next tile's load with this tile's math;
-// ldmatrix for the fragments; and the G query heads of one kv head
-// sharing a K/V tile.
+// every shape the LM path gives it.
+//
+//   bfloat16 (`flash_attention_bf16_wgmma_kernel`): warp-specialised
+//     `wgmma` with TMA.  One CTA per (batch, kv head, share of its G query
+//     heads, 64-row query tile): the G heads of a kv head are split into
+//     ceil(G / 3) shares of at most 3, and a CTA loads each K/V tile once
+//     for all heads of its share (G = 3, smollm-135m: once for the three).
+//     One producer warp issues TMA loads: the share's query tiles once,
+//     then K and V tiles into a 2-stage ring, each stage with a "full"
+//     mbarrier per operand (completed by the copy's bytes) and an "empty"
+//     one (an arrival from each consumer warp once its `wgmma`s have read
+//     the stage).  One consumer warpgroup per query head of the share
+//     holds its 64 rows: S = Q·Kᵀ is `wgmma.m64nNk16` with both operands
+//     in shared memory (K-major); the S accumulators, masked and
+//     exponentiated in place (the scale folded into one FFMA ahead of
+//     `ex2`), are rounded to bf16 as the A registers of O += P·V, whose
+//     B operand is the V tile in shared memory, MN-major (the transpose
+//     bit).  Tiles are swizzled by the TMA to the width of their rows
+//     (32, 64 or 128 bytes: H = 16, 32, 64; H = 128 as two 64-column
+//     boxes) and the `wgmma` descriptors name the same swizzle.  kv tiles
+//     are 128 rows (64 at H = 128, where O takes 64 registers a thread).
+//     A warpgroup waits on its own `wgmma`s before each softmax and each
+//     next tile; only the other warpgroups of the CTA (one CTA an SM: the
+//     registers are counted in whole warpgroups) fill those gaps.  Issuing
+//     S of tile j + 1 ahead of P·V of tile j, with or without warpgroups
+//     taking turns on named barriers, measured slower on the H100 than
+//     this simple order; so did a third ring stage.  The output is stored
+//     from registers, not by TMA.
+//   float32: CUDA-core FMAs, so no TF32.  One CTA per (b·kv·g head,
+//     64-row query tile), 64-row K/V tiles staged through shared memory;
+//     8 warps of 8 query rows, tiles in float32; lane j owns kv columns j,
+//     j+32 of the scores (K rows padded to H+1 floats for distinct banks)
+//     and output dims j, j+32, ...
+#include <cuda.h>            // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,9 +69,10 @@
 namespace {
 
 constexpr int kBlockQ = 64;                     // query rows per CTA
-constexpr int kBlockK = 64;                     // kv rows per tile
+constexpr int kBlockK = 64;                     // kv rows per tile (f32)
 constexpr float kNegInf = -1e30f;               // the TPU kernel's NEG_INF
 constexpr unsigned kFullMask = 0xffffffffu;
+
 
 // ------------------------------------------------------------ float32 path
 constexpr int kWarps = 8;
@@ -256,36 +277,142 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ----------------------------------------------------------- bfloat16 path
-constexpr int kMmaWarps = kBlockQ / 16;         // 4 warps of 16 rows
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kScoreTiles = kBlockK / 8;        // n8 tiles of a score row
 
+// ----------------------------------------------------------- bfloat16 path
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+constexpr int kStages = 2;              // depth of the K/V ring
+constexpr int kMaxShare = 3;            // query heads a CTA serves at most
+constexpr float kLog2e = 1.4426950408889634f;
+
+// kv rows a tile: 128 while O leaves the registers for a 64 x 128 S
+template <int H>
+__host__ __device__ constexpr int kv_tile() { return H <= 64 ? 128 : 64; }
+
+// bytes of one row of a TMA box: the head dim, cut at 64 columns (128
+// bytes, the widest swizzle); H = 128 takes two boxes side by side
+template <int H>
+__host__ __device__ constexpr int box_row_bytes() {
+  return (H < 64 ? H : 64) * 2;
 }
 
-// two bf16 in one register, `lo` in the low half (the lower k index)
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+// Shared memory of a CTA serving `NC` query heads: their query tiles, the
+// K and V rings, then the mbarriers (q_full, k_full[], v_full[], empty[]).
+// Every tile is a multiple of 1024 bytes, so each starts on the boundary
+// the 128-byte swizzle repeats on.
+template <int H, int NC>
+struct Smem {
+  static constexpr int kN = kv_tile<H>();
+  static constexpr int kQ = kBlockQ * H * 2;    // one head's query tile
+  static constexpr int kKV = kN * H * 2;        // one K or V tile
+  static constexpr int kKOff = NC * kQ;
+  static constexpr int kVOff = kKOff + kStages * kKV;
+  static constexpr int kBarOff = kVOff + kStages * kKV;
+  static constexpr int kAlloc = kBarOff + (1 + 3 * kStages) * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// round two floats to bf16 (nearest even, as `astype(bfloat16)`) and pack
-__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
-  return pack(__float2bfloat16(lo), __float2bfloat16(hi));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
 }
 
-// d += a · b for one 16x8x16 tile: a row-major 16x16, b col-major 16x8
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// one arrival that also expects `bytes` of copies to complete the phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// waits until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: one box of `map` at the given coordinates (innermost first) into
+// shared memory at `dst`; the copy's bytes complete on `bar`.  Boxes that
+// reach past a dimension's end are zero-filled there.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of `r` across the
+// asynchronous `wgmma`s that own them between issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// `wgmma` shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units) and the swizzle of a tile whose rows
+// are `box_row_bytes<H>()` wide (1 = 128B, 2 = 64B, 3 = 32B).  The stride
+// offset is the step between 8-row groups: 8 rows of the box.
+template <int H>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo) {
+  constexpr int kRow = box_row_bytes<H>();
+  constexpr uint64_t kLayout = kRow == 128 ? 1 : kRow == 64 ? 2 : 3;
+  constexpr uint64_t kSbo = 8 * kRow / 16;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
+         (kSbo << 32) | (kLayout << 62);
+}
+
+// two floats rounded to bf16 (nearest even, as `astype(bfloat16)`) in one
+// register, `lo` in the low half (the lower k index): one cvt
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit; a result below 2^-126 flushes to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -298,218 +425,542 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFullMask, x, 2);
 }
 
-// Copies `rows` rows of H bf16 (global row stride `stride` elements) into
-// shared rows of `kStride` elements, 16 bytes a thread; rows past `valid`
-// are zero.
-template <int H, int kStride>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           long long stride, int first,
-                                           int valid, int rows) {
-  constexpr int kVecs = H / 8;
-  for (int i = threadIdx.x; i < rows * kVecs; i += kMmaThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (first + r < valid) {
-      val = *reinterpret_cast<const uint4*>(src + (first + r) * stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
+// The two `wgmma` shapes of the kernel, PTX written out for each width N:
+// `Wgmma<N>::ss` (S = Q·Kᵀ, N = the kv tile) and `WgmmaRs<N>::rs`
+// (O += P·V, N = the head dim).  Accumulator register 4j + i of a thread
+// (lane = 4·r + c of warp w of the warpgroup) holds row 16w + r (+8 for
+// i >= 2), column 8j + 2c + (i & 1); an A register holds the same rows'
+// pairs of k, as `mma.m16n8k16` lays them out.
+template <int N>
+struct Wgmma;
+
+template <int N>
+struct WgmmaRs;
+
+template <>
+struct Wgmma<64> {
+  // d (+)= A·B, A [64 x 16] and B [16 x 64] from shared memory, both
+  // K-major; scale_d = 0 overwrites d
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
   }
-}
+};
 
-template <int H>
-constexpr int bf16_smem_bytes() {
-  return (kBlockQ + 2 * kBlockK) * (H + 8) * (int)sizeof(bf16);
-}
-
-// Fragment layouts are those of PTX `mma.m16n8k16` for bf16: with
-// g = lane / 4 and t = lane % 4, A register j holds row g (+8 for j odd),
-// k = 2t, 2t+1 (+8 for j >= 2); B register j holds k = 2t, 2t+1 (+8 for
-// j = 1) of column g; C holds rows g (d0, d1) and g+8 (d2, d3), columns
-// 2t, 2t+1.
-template <int H>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_attention_bf16_kernel(const bf16* __restrict__ q,
-                                const bf16* __restrict__ k,
-                                const bf16* __restrict__ v,
-                                bf16* __restrict__ o, int sq, int sk,
-                                int kv_heads, int group, float scale,
-                                int causal) {
-  constexpr int kStride = H + 8;       // shared row, padded by 16 bytes
-  constexpr int kChunks = H / 16;      // k16 chunks of the head dim
-  constexpr int kDimTiles = H / 8;     // n8 tiles of an output row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kBlockQ][kStride]
-  bf16* ks = qs + kBlockQ * kStride;               // [kBlockK][kStride]
-  bf16* vs = ks + kBlockK * kStride;               // [kBlockK][kStride]
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int heads = kv_heads * group;
-  const int head = blockIdx.y;             // b * heads + kv * group + g
-  const int b = head / heads;
-  const int hq = head % heads;
-  const int kvh = hq / group;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-
-  const long long q_stride = (long long)heads * H;
-  const long long kv_stride = (long long)kv_heads * H;
-  const bf16* qh = q + (long long)b * sq * q_stride + (long long)hq * H;
-  const bf16* kh = k + (long long)b * sk * kv_stride + (long long)kvh * H;
-  const bf16* vh = v + (long long)b * sk * kv_stride + (long long)kvh * H;
-  bf16* oh = o + (long long)b * sq * q_stride + (long long)hq * H;
-
-  stage_rows<H, kStride>(qs, qh, q_stride, q0, sq, kBlockQ);
-  __syncthreads();
-  // this warp's 16 query rows as A fragments, kept for the whole loop
-  uint32_t qa[kChunks][4];
-  const bf16* qw = qs + warp * 16 * kStride;
-#pragma unroll
-  for (int kk = 0; kk < kChunks; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = ld32(qw + g * kStride + c);
-    qa[kk][1] = ld32(qw + (g + 8) * kStride + c);
-    qa[kk][2] = ld32(qw + g * kStride + c + 8);
-    qa[kk][3] = ld32(qw + (g + 8) * kStride + c + 8);
+template <>
+struct Wgmma<128> {
+  // d (+)= A·B, A [64 x 16] and B [16 x 128] from shared memory, both
+  // K-major; scale_d = 0 overwrites d
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+        "%58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
   }
+};
 
-  const int row_g = q0 + warp * 16 + g;    // rows g and g+8 of the warp
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  float acc[kDimTiles][4];
-#pragma unroll
-  for (int nd = 0; nd < kDimTiles; ++nd) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.0f;
+template <>
+struct WgmmaRs<16> {
+  // d += A·B, A [64 x 16] from registers, B [16 x 16] from shared memory,
+  // MN-major (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
-  const int kv_end = causal ? min(sk, q0 + kBlockQ) : sk;
+};
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows<H, kStride>(ks, kh, kv_stride, k0, sk, kBlockK);
-    stage_rows<H, kStride>(vs, vh, kv_stride, k0, sk, kBlockK);
-    __syncthreads();
+template <>
+struct WgmmaRs<32> {
+  // d += A·B, A [64 x 16] from registers, B [16 x 32] from shared memory,
+  // MN-major (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
 
-    // s = q · kᵀ: B[k][n] = K[n][k], so B registers are K rows in place
-    float s[kScoreTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kScoreTiles; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < kChunks; ++kk) {
-        const bf16* kr = ks + (nt * 8 + g) * kStride + kk * 16 + 2 * t;
-        mma_bf16(s[nt], qa[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
+template <>
+struct WgmmaRs<64> {
+  // d += A·B, A [64 x 16] from registers, B [16 x 64] from shared memory,
+  // MN-major (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
 
-    // mask and row max (rows g and g+8 of this warp)
-    float mx[2] = {kNegInf, kNegInf};
+template <>
+struct WgmmaRs<128> {
+  // d += A·B, A [64 x 16] from registers, B [16 x 128] from shared memory,
+  // MN-major (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+        "%58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// Online softmax of one tile's raw scores `sc` (accumulator layout of
+// rows row0 and row0 + 8, kv positions from k0): masks them, updates the
+// row maxima m and sums l, sets corr to the factor that rescales O to the
+// new maxima, and writes p = exp(scale·s − m), as 2^x of one FFMA, rounded
+// to bf16 into the A registers of P·V (score columns 16q .. 16q + 15,
+// accumulator chunks 2q and 2q + 1, make k16 step q).  l sums p unrounded,
+// in a fixed order.  The scale is positive, so maxima of raw and scaled
+// scores agree.  Each p is packed as soon as it is made, so the scores'
+// registers free as the packed ones fill.
+template <int kN>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[kN / 2], uint32_t (&pa)[kN / 16][4], float (&m)[2],
+    float (&l)[2], float (&corr)[2], int k0, int row0, int c, int q0, int sk,
+    int causal, float scale_log2) {
+  // only a tile past Sk or, causal, past the CTA's first query row masks
+  if (k0 + kN > sk || (causal && k0 + kN - 1 > q0)) {
 #pragma unroll
-    for (int nt = 0; nt < kScoreTiles; ++nt) {
+    for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int kpos = k0 + nt * 8 + 2 * t + (i & 1);
-        const int qpos = row_g + 8 * (i >> 1);
-        float x = s[nt][i] * scale;
+        const int kpos = k0 + j * 8 + 2 * c + (i & 1);
+        const int qpos = row0 + 8 * (i >> 1);
         const bool visible = kpos < sk && (!causal || qpos >= kpos);
-        x = visible ? x : kNegInf;
-        s[nt][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
-      }
-    }
-    float m_new[2], corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = expf(m[r] - m_new[r]);
-    }
-
-    // p = exp(s − m): l sums it in f32; rounded to bf16 it becomes the A
-    // fragments of p·v (score tiles 2c and 2c+1 make k16 chunk c)
-    uint32_t pa[kScoreTiles / 2][4];
-    float psum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int nt = 0; nt < kScoreTiles; ++nt) {
-      const float p0 = expf(s[nt][0] - m_new[0]);
-      const float p1 = expf(s[nt][1] - m_new[0]);
-      const float p2 = expf(s[nt][2] - m_new[1]);
-      const float p3 = expf(s[nt][3] - m_new[1]);
-      psum[0] += p0;
-      psum[0] += p1;
-      psum[1] += p2;
-      psum[1] += p3;
-      pa[nt >> 1][(nt & 1) * 2 + 0] = pack_rn(p0, p1);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_rn(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = l[r] * corr[r] + quad_sum(psum[r]);
-      m[r] = m_new[r];
-    }
-#pragma unroll
-    for (int nd = 0; nd < kDimTiles; ++nd) {
-      acc[nd][0] *= corr[0];
-      acc[nd][1] *= corr[0];
-      acc[nd][2] *= corr[1];
-      acc[nd][3] *= corr[1];
-    }
-
-    // acc += p · v: B[k][n] = V[kv k][dim n], two rows a register
-#pragma unroll
-    for (int c = 0; c < kScoreTiles / 2; ++c) {
-#pragma unroll
-      for (int nd = 0; nd < kDimTiles; ++nd) {
-        const bf16* vr = vs + (c * 16 + 2 * t) * kStride + nd * 8 + g;
-        mma_bf16(acc[nd], pa[c], pack(vr[0], vr[kStride]),
-                 pack(vr[8 * kStride], vr[9 * kStride]));
+        sc[4 * j + i] = visible ? sc[4 * j + i] : kNegInf;
       }
     }
   }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], sc[4 * j + i]);
+  }
+  float neg_m[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m[h], quad_max(mx[h]));
+    corr[h] = exp2_ftz((m[h] - m_new) * scale_log2);
+    neg_m[h] = -m_new * scale_log2;
+    m[h] = m_new;
+  }
+  float psum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    const float p0 = exp2_ftz(fmaf(sc[4 * j + 0], scale_log2, neg_m[0]));
+    const float p1 = exp2_ftz(fmaf(sc[4 * j + 1], scale_log2, neg_m[0]));
+    const float p2 = exp2_ftz(fmaf(sc[4 * j + 2], scale_log2, neg_m[1]));
+    const float p3 = exp2_ftz(fmaf(sc[4 * j + 3], scale_log2, neg_m[1]));
+    psum[0] += p0;
+    psum[0] += p1;
+    psum[1] += p2;
+    psum[1] += p3;
+    pa[j >> 1][(j & 1) * 2 + 0] = pack_rn(p0, p1);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_rn(p2, p3);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + quad_sum(psum[h]);
+}
 
+// One CTA per (query tile, batch · kv head · share); warps 0 .. 4·NC - 1
+// are the consumer warpgroups (warpgroup c serves query head g0 + c), warp
+// 4·NC the producer.  See the head of this file.
+template <int H, int NC>
+__global__ void __launch_bounds__(NC * 128 + 32, 1)
+    flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                      const __grid_constant__ CUtensorMap tm_k,
+                                      const __grid_constant__ CUtensorMap tm_v,
+                                      bf16* __restrict__ o, int sq, int sk,
+                                      int kv_heads, int group, int shares,
+                                      float scale_log2, int causal) {
+  using L = Smem<H, NC>;
+  constexpr int kN = L::kN;
+  constexpr int kRow = box_row_bytes<H>();
+  constexpr int kBoxCols = kRow / 2;
+  constexpr int kBoxes = H / kBoxCols;            // 2 for H = 128
+  // V's second 64-column box is the next atom along its (MN) rows
+  constexpr uint32_t kVLbo = kN * kRow / 16;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::kBarOff;
+  const uint32_t k_full = q_full + 8;             // [kStages]
+  const uint32_t v_full = k_full + 8 * kStages;   // [kStages]
+  const uint32_t empty = v_full + 8 * kStages;    // [kStages]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // heaviest first
+  const int share = blockIdx.y % shares;
+  const int kvh = (blockIdx.y / shares) % kv_heads;
+  const int b = blockIdx.y / shares / kv_heads;
+  const int g0 = share * NC;
+  const int heads = min(NC, group - g0);          // heads of this share
+  const int kv_end = causal ? min(sk, q0 + kBlockQ) : sk;
+  const int n_tiles = (kv_end + kN - 1) / kN;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_g + 8 * r;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * heads);        // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NC) {
+    // ------------------------------------------------ producer (one lane)
+    if ((threadIdx.x & 31) != 0) return;
+    mbar_expect_tx(q_full, heads * L::kQ);
+    for (int c = 0; c < heads; ++c) {
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load(base + c * L::kQ + x * kBlockQ * kRow, &tm_q, q_full,
+                 x * kBoxCols, g0 + c, kvh, q0, b);
+      }
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      if (it >= kStages) mbar_wait(empty + 8 * s, ((it / kStages) - 1) & 1);
+      const uint32_t kdst = base + L::kKOff + s * L::kKV;
+      const uint32_t vdst = base + L::kVOff + s * L::kKV;
+      mbar_expect_tx(k_full + 8 * s, L::kKV);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load(kdst + x * kN * kRow, &tm_k, k_full + 8 * s, x * kBoxCols,
+                 kvh, it * kN, b);
+      }
+      mbar_expect_tx(v_full + 8 * s, L::kKV);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load(vdst + x * kN * kRow, &tm_v, v_full + 8 * s, x * kBoxCols,
+                 kvh, it * kN, b);
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------- consumer warpgroup `wg`
+  const int wg = warp >> 2;
+  if (wg >= heads) return;                        // a short last share
+  const int lane = threadIdx.x & 31;
+  const int c = lane & 3;
+  const int head = g0 + wg;
+  const uint32_t q_base = base + wg * L::kQ;
+  const int row0 = q0 + (warp & 3) * 16 + (lane >> 2);  // and row0 + 8
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, corr[2];
+  float acc[H / 2];
+#pragma unroll
+  for (int i = 0; i < H / 2; ++i) acc[i] = 0.0f;
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    const uint32_t k_base = base + L::kKOff + s * L::kKV;
+    const uint32_t v_base = base + L::kVOff + s * L::kKV;
+
+    // S = Q·Kᵀ: k16 step kk reads 32 bytes of each row, in box kk·16 / 64
+    float sc[kN / 2];
+    mbar_wait(k_full + 8 * s, parity);
+    __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+      const int box = kk * 16 / kBoxCols, col = (kk * 16) % kBoxCols;
+      Wgmma<kN>::ss(sc,
+                    make_desc<H>(q_base + box * kBlockQ * kRow + col * 2, 1),
+                    make_desc<H>(k_base + box * kN * kRow + col * 2, 1),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    uint32_t pa[kN / 16][4];
+    online_softmax<kN>(sc, pa, m, l, corr, it * kN, row0, c, q0, sk, causal,
+                       scale_log2);
+#pragma unroll
+    for (int j = 0; j < H / 8; ++j) {
+      acc[4 * j + 0] *= corr[0];
+      acc[4 * j + 1] *= corr[0];
+      acc[4 * j + 2] *= corr[1];
+      acc[4 * j + 3] *= corr[1];
+    }
+
+    // O += P·V: k16 step q reads V rows 16q .. 16q + 15
+    mbar_wait(v_full + 8 * s, parity);
+    __syncwarp();
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < kN / 16; ++q) {
+      WgmmaRs<H>::rs(acc, pa[q],
+                     make_desc<H>(v_base + q * 16 * kRow, kVLbo));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);    // this warp read stage s
+  }
+
+  const long long q_stride = (long long)kv_heads * group * H;  // one row
+  bf16* oh = o + (long long)b * sq * q_stride +
+             ((long long)kvh * group + head) * H + 2 * c;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
     if (row >= sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    bf16* orow = oh + row * q_stride + 2 * t;
+    const float denom = fmaxf(l[h], 1e-30f);
+    bf16* orow = oh + row * q_stride;
 #pragma unroll
-    for (int nd = 0; nd < kDimTiles; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8) = __floats2bfloat162_rn(
-          acc[nd][2 * r] / denom, acc[nd][2 * r + 1] / denom);
+    for (int j = 0; j < H / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * h] / denom, acc[4 * j + 2 * h + 1] / denom);
     }
   }
 }
 
 // ------------------------------------------------------------------ launch
 template <int H>
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int batch, int sq, int sk, int kv_heads, int group,
+               float scale, int causal, cudaStream_t stream) {
+  const dim3 grid((unsigned)((sq + kBlockQ - 1) / kBlockQ),
+                  (unsigned)(batch * kv_heads * group));
+  const int smem = f32_smem_bytes<H>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_f32_kernel<H>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_f32_kernel<H><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, sq, sk, kv_heads, group, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime so the
+// library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// A tensor map over a contiguous bf16 tensor of `rank` dims `dims`
+// (innermost first) read in boxes `box`, swizzled to the box's row width.
+// Each dimension keeps its own extent, so a box past the end of a batch's
+// Sq or Sk rows is zero-filled, never read from the next batch.
+template <int H>
+bool encode(CUtensorMap* map, const void* ptr, int rank,
+            const cuuint64_t* dims, const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t strides[4];                 // bytes, of dims 1 .. rank - 1
+  cuuint64_t stride = dims[0] * sizeof(bf16);
+  for (int i = 1; i < rank; ++i) {
+    strides[i - 1] = stride;
+    stride *= dims[i];
+  }
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  constexpr int kRow = box_row_bytes<H>();
+  const CUtensorMapSwizzle swizzle =
+      kRow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : kRow == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+            const_cast<void*>(ptr), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int H, int NC>
+int launch_bf16_share(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                      const CUtensorMap& tm_v, bf16* o, int batch, int sq,
+                      int sk, int kv_heads, int group, int shares,
+                      float scale_log2, int causal, cudaStream_t stream) {
+  using L = Smem<H, NC>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bf16_wgmma_kernel<H, NC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((sq + kBlockQ - 1) / kBlockQ),
+                  (unsigned)(batch * kv_heads * shares));
+  flash_attention_bf16_wgmma_kernel<H, NC>
+      <<<grid, NC * 128 + 32, L::kAlloc, stream>>>(
+          tm_q, tm_k, tm_v, o, sq, sk, kv_heads, group, shares, scale_log2,
+          causal);
+  return (int)cudaGetLastError();
+}
+
+template <int H>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                int batch, int sq, int sk, int kv_heads, int group,
+                float scale, int causal, cudaStream_t stream) {
+  constexpr cuuint32_t kBoxCols = box_row_bytes<H>() / 2;
+  // q [B, Sq, Kv, G, H] in boxes of one head's 64 query rows; k, v
+  // [B, Sk, Kv, H] in boxes of one kv head's kv tile
+  const cuuint64_t q_dims[5] = {H, (cuuint64_t)group, (cuuint64_t)kv_heads,
+                                (cuuint64_t)sq, (cuuint64_t)batch};
+  const cuuint32_t q_box[5] = {kBoxCols, 1, 1, kBlockQ, 1};
+  const cuuint64_t kv_dims[4] = {H, (cuuint64_t)kv_heads, (cuuint64_t)sk,
+                                 (cuuint64_t)batch};
+  const cuuint32_t kv_box[4] = {kBoxCols, 1, kv_tile<H>(), 1};
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode<H>(&tm_q, q, 5, q_dims, q_box) ||
+      !encode<H>(&tm_k, k, 4, kv_dims, kv_box) ||
+      !encode<H>(&tm_v, v, 4, kv_dims, kv_box)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // ceil(G / 3) shares of a kv head's query heads, as even as they go
+  const int shares = (group + kMaxShare - 1) / kMaxShare;
+  const int per_share = (group + shares - 1) / shares;
+  const float scale_log2 = scale * kLog2e;
+  bf16* out = static_cast<bf16*>(o);
+  switch (per_share) {
+    case 1:
+      return launch_bf16_share<H, 1>(tm_q, tm_k, tm_v, out, batch, sq, sk,
+                                     kv_heads, group, shares, scale_log2,
+                                     causal, stream);
+    case 2:
+      return launch_bf16_share<H, 2>(tm_q, tm_k, tm_v, out, batch, sq, sk,
+                                     kv_heads, group, shares, scale_log2,
+                                     causal, stream);
+    default:
+      return launch_bf16_share<H, 3>(tm_q, tm_k, tm_v, out, batch, sq, sk,
+                                     kv_heads, group, shares, scale_log2,
+                                     causal, stream);
+  }
+}
+
+template <int H>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int sq, int sk, int kv_heads, int group, float scale, int causal,
            int dtype, cudaStream_t stream) {
-  const dim3 grid((unsigned)((sq + kBlockQ - 1) / kBlockQ),
-                  (unsigned)(batch * kv_heads * group));
-  cudaError_t err;
   if (dtype == 0) {
-    const int smem = f32_smem_bytes<H>();
-    err = cudaFuncSetAttribute(flash_attention_f32_kernel<H>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_f32_kernel<H><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), sq, sk,
-        kv_heads, group, scale, causal);
-  } else {
-    const int smem = bf16_smem_bytes<H>();
-    err = cudaFuncSetAttribute(flash_attention_bf16_kernel<H>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_bf16_kernel<H><<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk,
-        kv_heads, group, scale, causal);
+    return launch_f32<H>(static_cast<const float*>(q),
+                         static_cast<const float*>(k),
+                         static_cast<const float*>(v), static_cast<float*>(o),
+                         batch, sq, sk, kv_heads, group, scale, causal,
+                         stream);
   }
-  return (int)cudaGetLastError();
+  return launch_bf16<H>(q, k, v, o, batch, sq, sk, kv_heads, group, scale,
+                        causal, stream);
 }
 
 }  // namespace

@@ -198,6 +198,11 @@ BAD_INPUTS = {
     "misaligned_q": (lambda q, k, v: (torch.zeros(q.numel() + 1)[1:].view(
         q.shape), k, v), "16-byte aligned"),
     "cpu_tensors": (lambda q, k, v: (q, k, v), "CUDA"),
+    # the bf16 kernel's TMA maps need 16-byte aligned bases: v 8 bytes off
+    "misaligned_v_bf16": (lambda q, k, v: (
+        q.bfloat16(), k.bfloat16(),
+        torch.zeros(v.numel() + 4, dtype=torch.bfloat16)[4:].view(v.shape)),
+        "v must be 16-byte aligned"),
 }
 
 
@@ -229,7 +234,10 @@ def test_cpu_tensors_take_the_plain_version():
 def test_cuda_kernel_matches_plain_on_card():
     """On a card: the kernel vs the plain version, f32 (TF32 off) at 2e-5
     and bf16 within `bf16_attention_error_ratio`'s limit, ragged and
-    Sq != Sk included, bitwise run to run."""
+    Sq != Sk included, bitwise run to run.  The bf16 cases take the wgmma
+    kernel's corners: every head dim, G = 1 and G = 8 (three shares of a
+    kv head's query heads, the last one short), and B = 2 at a ragged
+    length, where a TMA map that read the next batch's rows would show."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -237,7 +245,13 @@ def test_cuda_kernel_matches_plain_on_card():
              (1, 64, 192, 2, 2, 32, False, torch.float32),
              (1, 100, 100, 3, 3, 16, True, torch.float32),
              (2, 300, 300, 3, 3, 64, True, torch.bfloat16),
-             (1, 130, 130, 2, 2, 128, True, torch.bfloat16)]
+             (1, 130, 130, 2, 2, 128, True, torch.bfloat16),
+             (2, 300, 1000, 2, 3, 64, False, torch.bfloat16),
+             (2, 256, 256, 2, 2, 16, True, torch.bfloat16),
+             (2, 256, 256, 2, 2, 32, True, torch.bfloat16),
+             (2, 256, 256, 4, 1, 64, True, torch.bfloat16),
+             (1, 256, 256, 2, 8, 64, True, torch.bfloat16),
+             (2, 1000, 1000, 3, 3, 64, True, torch.bfloat16)]
     for b, sq, sk, kv, g, h, causal, dt in cases:
         q, k, v = (torch.from_numpy(a).to("cuda", dt)
                    for a in _qkv(sq, b, sq, sk, kv, g, h))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the PyTorch port's main paths on one NVIDIA card.
 
-  python3 tools/profile_torch_main_path.py [--scale 22]
+  python3 tools/profile_torch_main_path.py [--scale 22] [--src DIR]
+                                          [--lm-only]
 
 Graph path: builds the inputs of `chip_smoke.py` with its own `build_inputs`
 (Graph500 R-MAT a=0.57, b=c=0.19, edge factor 16, seed 0, weights; both
@@ -20,7 +21,9 @@ device-busy time (the union of its kernels' intervals), the idle share
 and attention kernels, matmuls, gathers and index writes, sorts and the
 tile route's lane compaction, other).  Tracing
 adds host time, so the wall times here are not the end-to-end numbers;
-those come from `chip_smoke.py`, run without the profiler.
+those come from `chip_smoke.py`, run without the profiler.  `--src`
+profiles the port of another tree (an unpacked `git archive`) with this
+script, so two commits are measured alike in one call.
 """
 from __future__ import annotations
 
@@ -157,13 +160,21 @@ def profile_graph(scale: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory whose repro_torch is profiled, "
+                         "e.g. an unpacked git archive of another commit")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="profile the LM path alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: needs an NVIDIA card", file=sys.stderr)
         return 1
-    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    sys.path[:0] = [str(Path(args.src).resolve()), str(ROOT)]
+    import repro_torch
+    print(json.dumps({"repro_torch": repro_torch.__file__}), flush=True)
     profile_lm()
-    profile_graph(args.scale)
+    if not args.lm_only:
+        profile_graph(args.scale)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
     return 0
 
