@@ -3,9 +3,10 @@
 
   python3 chip_smoke.py [--scale 22] [--reps 10]
 
-1. Prints the card's name and power limit and builds both CUDA sources
-   from `src/repro_torch/kernels/csrc/` with `nvcc` (sm_90a), one `nvcc`
-   per source, all started together.
+1. Starts the distributed phase's host ingress in a child process (step
+   3b), prints the card's name and power limit and builds both CUDA
+   sources from `src/repro_torch/kernels/csrc/` with `nvcc` (sm_90a), one
+   `nvcc` per source, all started together.
 2. Builds the Graph500 R-MAT graph (a=0.57, b=c=0.19, edge factor 16,
    seed 0, integer weights in [1, 65535]) at `--scale` and its partitions
    on the card, then holds the combine kernel against its plain PyTorch
@@ -43,6 +44,35 @@
    numpy/scipy oracle: one untimed pass, then the timed pass, with the
    combine and compaction kernels' launch counters set to 0 before it and
    read after it.
+3b. Distributed phase, after the single-shard partitions are freed: the
+   same graph on k = 8 shards stacked on the card
+   (`repro_torch.core.dist_engine`), placed by `partition_edges(method=
+   "hdrf")`, CC on the agent graph of the undirected graph.  The child
+   process of step 1 builds both agent graphs and `partition_quality`
+   while the phases before run; the `dist_ingress` lines print its
+   seconds, the replication factor and remote-edge fraction, |V_s|, |V_c|,
+   the exchange pads and the stacked topologies' bytes on the card.
+   PageRank (30 supersteps) under agent, agent with overlap, dense and
+   pipelined (async must refuse it); SSSP ("auto") under those and async
+   (staleness 2); BFS ("compact") under agent, pipelined and async; CC
+   under agent and async.  One untimed pass of every run, then the
+   timed pass with the combine and compaction counts set to 0 before it
+   and read after it (the `dist_launches` line).  SSSP, BFS and CC must
+   equal the oracles bitwise and PageRank within 1e-4; the sync and
+   pipelined runs must take the single-shard run's supersteps; the
+   dense-route combine must launch in every run and the tile route in
+   the compacted BFS.  One `dist_run` line a run: supersteps, wall ms,
+   edges/s, launches, and the values the exchange moves a superstep:
+   |V_s| + |V_c| for agent and pipelined (a window's share for async),
+   |V_s| + k·k·cap for dense (paper §5.1), beside the entries counted
+   through the communicator (padding and activity flags included).
+   Then the kernels at the distributed path's own shapes: every combine
+   call of the first 3 supersteps of PageRank and SSSP under agent,
+   dense and pipelined, the compacted BFS under agent and pipelined and
+   CC under agent is recorded (inputs as the wrapper got them) and held
+   as in step 2: the stacked combine, the flush route, the dense
+   exchange's `[k, k·cap]` vectors, the pipelined compact spaces and the
+   compacted tiles (one `dist_hold` line a run).
 4. Attention kernel phase: the flash-attention kernel against its plain
    version at smollm-135m's prefill shape (B=4, S=2048, 3 kv heads x 3,
    H=64, causal, bf16), a ragged causal length (S=1000, bf16), float32
@@ -96,6 +126,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -270,9 +301,10 @@ def pick_frontier_tile(part, source, max_supersteps=8):
     return msgs, dst, valid
 
 
-def check_compaction(dst, num_segments, valid, reps):
+def hold_compaction(name, dst, num_segments, valid):
     """The compaction kernel against its plain version (bitwise, in lane
-    order), twice; returns its record."""
+    order), once with the caller's valid total and once counting on its
+    own."""
     from repro_torch.kernels import segment_combine as sc
     first = sc.compact_lanes_cuda(dst, num_segments, valid)
     second = sc.compact_lanes_cuda(dst, num_segments)   # counts on its own
@@ -280,7 +312,14 @@ def check_compaction(dst, num_segments, valid, reps):
     torch.cuda.synchronize()
     for got in (first, second):
         if not all(torch.equal(g, p) for g, p in zip(got, plain)):
-            raise AssertionError("compaction differs from its plain version")
+            raise AssertionError(f"{name}: compaction differs from its "
+                                 "plain version")
+
+
+def check_compaction(dst, num_segments, valid, reps):
+    """`hold_compaction` on a tile, then its times; returns its record."""
+    from repro_torch.kernels import segment_combine as sc
+    hold_compaction("tile_compact", dst, num_segments, valid)
     before = sc.LAUNCHES["compact"]
     rec = {"case": "tile_compact", "route": "compact",
            "lanes": int(dst.shape[0]),
@@ -583,6 +622,350 @@ def check_lanes(part, sources, multi, single0):
         assert torch.equal(multi[:, lane], out.vertex_data), f"lane {lane}"
     log(f"multi_source lanes {(0,) + lanes} bitwise equal to single-source "
         "runs")
+
+
+# ----------------------------------------------------- distributed phase
+DIST_K = 8                          # shards, as the paper's 8 machines
+# (program, exchange, options) of the distributed phase, in run order;
+# exchange="async" refuses PageRank, which the phase checks apart
+DIST_RUNS = (("pagerank", "agent", {}), ("pagerank", "agent", {"overlap": True}),
+             ("pagerank", "dense", {}), ("pagerank", "pipelined", {}),
+             ("sssp", "agent", {}), ("sssp", "agent", {"overlap": True}),
+             ("sssp", "dense", {}), ("sssp", "pipelined", {}),
+             ("sssp", "async", {"staleness": 2}),
+             ("bfs_compact", "agent", {}), ("bfs_compact", "pipelined", {}),
+             ("bfs_compact", "async", {"staleness": 2}),
+             ("cc", "agent", {}), ("cc", "async", {"staleness": 2}))
+
+
+def dist_ingress(conn, src: str, scale: int, k: int, key: str) -> None:
+    """Host ingress of the distributed phase, run in a child process while
+    the parent drives the single-shard phases: the same R-MAT graph as
+    `build_inputs` (`key` "directed") or its undirected form (CC), HDRF
+    placement onto `k` shards (the JAX package's default partitioner), the
+    agent graph and `partition_quality`.  Sends `(AgentGraph fields,
+    figures)` back through `conn`."""
+    sys.path.insert(0, src)
+    try:
+        from repro_torch.core.agent_graph import build_agent_graph
+        from repro_torch.core.partition import partition_quality
+        from repro_torch.core.partition_stream import partition_edges
+        from repro_torch.graph.generators import rmat_edges
+        t0 = time.perf_counter()
+        g = rmat_edges(scale, 16, seed=0, weights=True).dedup()
+        if key == "undirected":
+            g = g.as_undirected()
+        t1 = time.perf_counter()
+        part = partition_edges(g, k, method="hdrf")
+        t2 = time.perf_counter()
+        ag = build_agent_graph(g, part, k, partitioner="hdrf")
+        t3 = time.perf_counter()
+        q = partition_quality(g, part, k=k)
+        t4 = time.perf_counter()
+        conn.send(("ok", (vars(ag), {
+            "E": g.num_edges, "graph_s": t1 - t0, "hdrf_s": t2 - t1,
+            "ingress_agent_graph_s": t3 - t2, "quality_s": t4 - t3,
+            "replication_factor": q.replication_factor,
+            "remote_dst_edge_fraction": q.remote_dst_edge_fraction,
+            "edge_balance": q.edge_balance, "agent_comm": q.agent_comm,
+            "vertexcut_comm": q.vertexcut_comm})))
+    except Exception as exc:            # the parent raises it
+        conn.send(("error", repr(exc)))
+    finally:
+        conn.close()
+
+
+def start_dist_ingress(scale: int, k: int,
+                       keys=("directed", "undirected")):
+    """Start one `dist_ingress` a graph, each in a spawned process (numpy
+    only, no CUDA).  Returns `[(key, process, connection)]`."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    children = []
+    for key in keys:
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=dist_ingress,
+                           args=(send, str(ROOT / "src"), scale, k, key),
+                           daemon=True)
+        proc.start()
+        send.close()
+        children.append((key, proc, recv))
+    return children
+
+
+def stop_dist_ingress(children) -> None:
+    """Join the ingress processes, ending any still running."""
+    for _, proc, _ in children:
+        proc.join(timeout=5)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of the distinct tensors reachable from a topology's fields."""
+    seen, total, stack = set(), 0, [obj]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            if x.data_ptr() not in seen:
+                seen.add(x.data_ptr())
+                total += x.numel() * x.element_size()
+        elif dataclasses.is_dataclass(x):
+            stack.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+    return total
+
+
+def dist_inputs(children):
+    """Receive the children's agent graphs, print the ingress figures and
+    build the two stacked topologies of each graph on the card: the sync
+    one (edge columns, flush route; the dense backend's route for the
+    directed graph) and the split tiles of the pipelined and async
+    backends.  Returns `{key: (ag, {"sync": topo, "tiles": topo}, fig)}`."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.agent_graph import AgentGraph
+    from repro_torch.core.dist_engine import DistGREEngine
+    out = {}
+    prog = algorithms.bfs_program()
+    for key, proc, recv in children:
+        t0 = time.perf_counter()
+        status, payload = recv.recv()
+        proc.join()
+        log(f"dist_ingress_wait_s={time.perf_counter() - t0:.3f} {key}")
+        if status != "ok":
+            raise RuntimeError(f"distributed ingress failed: {payload}")
+        fields, fig = payload
+        ag = AgentGraph(**fields)
+        topos = {}
+        t0 = time.perf_counter()
+        sync = "dense" if key == "directed" else "agent"
+        for name, exchange in (("sync", sync), ("tiles", "pipelined")):
+            eng = DistGREEngine(prog, ag.k, exchange=exchange)
+            topos[name] = eng.device_topology(ag)
+        torch.cuda.synchronize()
+        fig.update({
+            "graph": key, "k": ag.k, "V": ag.num_vertices, "cap": ag.cap,
+            "V_s": int(ag.num_scatter.sum()),
+            "V_c": int(ag.num_combiner.sum()),
+            "s_x_pad": ag.s_x_pad, "c_x_pad": ag.c_x_pad, "e_pad": ag.e_pad,
+            "topology_s": time.perf_counter() - t0,
+            "topology_bytes": {n: tensor_bytes(t) for n, t in topos.items()}})
+        log("dist_ingress", json.dumps(fig))
+        out[key] = (ag, topos, fig)
+    return out
+
+
+# program -> (`algorithms` factory, seeded at the source, frontier, graph,
+# superstep limit)
+DIST_PROGRAMS = {
+    "pagerank": ("pagerank_program", False, "auto", "directed", 30),
+    "sssp": ("sssp_program", True, "auto", "directed", 10_000),
+    "bfs_compact": ("bfs_program", True, "compact", "directed", 10_000),
+    "cc": ("cc_program", False, "auto", "undirected", 10_000),
+}
+
+
+def dist_setup(name, exchange, opts, inputs, source):
+    """The engine, agent graph, stacked topology, initial state, ingress
+    figures and superstep limit of one program under one exchange."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.dist_engine import DistGREEngine
+    factory, seeded, frontier, key, steps = DIST_PROGRAMS[name]
+    ag, topos, fig = inputs[key]
+    eng = DistGREEngine(getattr(algorithms, factory)(), ag.k,
+                        exchange=exchange, frontier=frontier, **opts)
+    topo = topos["sync" if eng.plan.phases == "sync" else "tiles"]
+    st = eng.init_state(ag, source=source if seeded else None)
+    return eng, ag, topo, st, fig, steps
+
+
+def dist_run(name, exchange, opts, inputs, ref, source, single_steps,
+             checked):
+    """One program under one exchange on the stacked shards: the run, its
+    oracle check, its superstep count against the single-shard run and its
+    launch counts; returns the `dist_run` record."""
+    from repro_torch.core.dist_engine import original_order
+    from repro_torch.kernels.segment_combine import LAUNCHES
+    eng, ag, topo, st, fig, steps = dist_setup(name, exchange, opts, inputs,
+                                               source)
+    before = dict(LAUNCHES)
+    eng.comm.values = 0
+    out, ms = timed(lambda: eng.make_run(ag, steps)(topo, st))
+    launches = {r: LAUNCHES[r] - before[r] for r in LAUNCHES}
+    result = original_order(ag, out.vertex_data)
+    if not checked:
+        return None
+    ref_name = "bfs" if name == "bfs_compact" else name
+    if name == "pagerank":
+        np.testing.assert_allclose(result, ref["pagerank"], rtol=1e-4,
+                                   atol=1e-4)
+    else:
+        assert_exact(f"dist {name} {exchange}", torch.from_numpy(result),
+                     ref[ref_name])
+    if exchange != "async" and out.step != single_steps[name]:
+        raise AssertionError(f"dist {name} {exchange}: {out.step} "
+                             f"supersteps, single shard "
+                             f"{single_steps[name]}")
+    if launches["dense"] <= 0:
+        raise AssertionError(f"dist {name} {exchange}: no dense-route "
+                             f"combine launch {launches}")
+    if name == "bfs_compact" and launches["tile"] <= 0:
+        raise AssertionError(f"dist {name} {exchange}: no tile-route "
+                             f"combine launch {launches}")
+    vs_vc = fig["V_s"] + fig["V_c"]
+    per_step = {"agent": vs_vc, "pipelined": vs_vc,
+                "async": vs_vc / opts.get("staleness", 1),
+                "dense": fig["V_s"] + ag.k * ag.k * ag.cap}[exchange]
+    e = fig["E"]
+    rec = {"program": name, "exchange": exchange, **opts, "k": ag.k,
+           "supersteps": out.step, "wall_ms": ms,
+           "edges_per_s": e * out.step / (ms / 1e3) if out.step else 0.0,
+           "launches": launches, "values_per_superstep": per_step,
+           "comm_values_per_superstep": eng.comm.values / max(out.step, 1)}
+    log("dist_run", json.dumps(rec))
+    return rec
+
+
+def dist_phase(inputs, ref, source, single_steps):
+    """The distributed phase: async refuses PageRank, one untimed pass of
+    every run of DIST_RUNS, then the timed pass with the combine and
+    compaction counts set to 0 just before and read just after, then the
+    kernels held at the path's shapes (`dist_hold_phase`)."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.dist_engine import DistGREEngine
+    from repro_torch.kernels import segment_combine as sc
+    try:
+        DistGREEngine(algorithms.pagerank_program(), DIST_K,
+                      exchange="async")
+    except ValueError as exc:
+        log(f"dist async pagerank refused: {exc}")
+    else:
+        raise AssertionError("exchange='async' accepted PageRank")
+    log("dist warm-up pass (untimed, unchecked):")
+    for name, exchange, opts in DIST_RUNS:
+        dist_run(name, exchange, opts, inputs, ref, source, single_steps,
+                 False)
+    log("dist timed pass:")
+    torch.cuda.reset_peak_memory_stats()
+    sc.reset_launches()
+    t0 = time.perf_counter()
+    runs = [dist_run(name, exchange, opts, inputs, ref, source,
+                     single_steps, True)
+            for name, exchange, opts in DIST_RUNS]
+    launches = dict(sc.LAUNCHES)
+    log(f"dist_path_s={time.perf_counter() - t0:.3f} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    log("dist_launches", json.dumps(launches))
+    errs = dist_hold_phase(inputs, source)
+    return runs, launches, errs
+
+
+# (program, exchange) whose first DIST_HOLD_STEPS supersteps have every
+# combine-kernel call held: each route of the distributed path, in sums
+# and in min (async runs the pipelined backend's tile routes)
+DIST_HOLDS = (("pagerank", "agent"), ("pagerank", "dense"),
+              ("pagerank", "pipelined"), ("sssp", "agent"), ("sssp", "dense"),
+              ("sssp", "pipelined"), ("bfs_compact", "agent"),
+              ("bfs_compact", "pipelined"), ("cc", "agent"))
+DIST_HOLD_STEPS = 3
+
+
+@contextlib.contextmanager
+def recorded_combines():
+    """Record `(route, inputs)` of every combine-wrapper call
+    (`repro_torch.kernels.ops`) made inside the block; the calls still
+    launch their kernels."""
+    from repro_torch.kernels import ops
+    calls = []
+    dense, tile = ops.segment_combine, ops.tile_segment_combine
+
+    def dense_rec(msgs, dst, num_segments, op="sum", seg_ptr=None):
+        calls.append(("dense", {"msgs": msgs, "dst": dst, "op": op,
+                                "num_segments": num_segments,
+                                "seg_ptr": seg_ptr}))
+        return dense(msgs, dst, num_segments, op, seg_ptr)
+
+    def tile_rec(msgs, dst, num_segments, op="sum", valid=None):
+        calls.append(("tile", {"msgs": msgs, "dst": dst, "op": op,
+                               "num_segments": num_segments,
+                               "valid": valid}))
+        return tile(msgs, dst, num_segments, op, valid)
+
+    ops.segment_combine, ops.tile_segment_combine = dense_rec, tile_rec
+    try:
+        yield calls
+    finally:
+        ops.segment_combine, ops.tile_segment_combine = dense, tile
+
+
+def hold_recorded(name, route, args):
+    """One recorded wrapper call's kernels, launched twice on its inputs,
+    against the plain versions: the dense route's combine over the call's
+    row pointer, or the tile route's compaction and whole route.  Returns
+    the combine's errors."""
+    from repro_torch.kernels import segment_combine as sc
+    dst, nseg, op = args["dst"], args["num_segments"], args["op"]
+    msgs = args["msgs"]
+    msgs = msgs.reshape(msgs.shape[0], -1).to(torch.float32).contiguous()
+    if route == "dense":
+        ptr = args["seg_ptr"][:nseg + 1]
+
+        def run():
+            return sc.segment_combine_cuda(msgs, dst, ptr, nseg, op,
+                                           route="dense")
+        return hold_combine(name, op, run(), run(), msgs, dst, nseg)
+    valid = args["valid"]
+    hold_compaction(name, dst, nseg, valid)
+    keep = dst < nseg
+
+    def run():
+        return sc.tile_segment_combine_cuda(msgs, dst, nseg, op, valid)
+    return hold_combine(name, op, run(), run(), msgs[keep], dst[keep], nseg)
+
+
+def dist_hold_phase(inputs, source):
+    """Every combine-wrapper call of the first DIST_HOLD_STEPS supersteps
+    of each DIST_HOLDS run, held on its own inputs against the plain
+    version (`hold_recorded`): min/max bitwise, sums within SUM_RTOL of the
+    float64 sum.  Each run must reach its backend's segment spaces (agent:
+    the stacked slots; dense: those and the `[k, k·cap]` vectors;
+    pipelined: the compact combiner and master spaces) and the compacted
+    BFS the tile route.  Returns the largest error by route."""
+    errs = {"dense": 0.0, "tile": 0.0}
+    held = 0
+    for name, exchange in DIST_HOLDS:
+        eng, ag, topo, st, _, _ = dist_setup(name, exchange, {}, inputs,
+                                             source)
+        k, ns, cap = ag.k, ag.num_slots, ag.cap
+        want = {"agent": {k * ns}, "dense": {k * ns, k * k * cap},
+                "pipelined": {k * (ag.c_pad + 1), k * (cap + 1)}}[exchange]
+        with recorded_combines() as calls:
+            eng.make_run(ag, DIST_HOLD_STEPS)(topo, st)
+        seen = {}
+        for i, (route, args) in enumerate(calls):
+            e = hold_recorded(f"dist {name} {exchange} call {i}", route, args)
+            errs[route] = max(errs[route], e["max_abs_err"])
+            key = f"{route}:{args['num_segments']}"
+            seen[key] = seen.get(key, 0) + 1
+        held += len(calls)
+        del calls
+        log("dist_hold", json.dumps({"program": name, "exchange": exchange,
+                                     "supersteps": DIST_HOLD_STEPS,
+                                     "held": seen}))
+        spaces = {int(key.split(":")[1]) for key in seen}
+        if not want <= spaces:
+            raise AssertionError(f"dist {name} {exchange}: held segment "
+                                 f"spaces {sorted(spaces)}, expected "
+                                 f"{sorted(want)}")
+        if name == "bfs_compact" and not any(key.startswith("tile")
+                                             for key in seen):
+            raise AssertionError(f"dist {name} {exchange}: no tile-route "
+                                 "call to hold")
+    torch.cuda.synchronize()
+    log(f"dist_calls_held={held} max_abs_err={json.dumps(errs)}")
+    return errs
 
 
 # ------------------------------------------------------- attention phase
@@ -922,6 +1305,15 @@ def main() -> int:
     if args.scale > 24:
         raise SystemExit("--scale must be <= 24")
     sys.path.insert(0, str(ROOT / "src"))
+    # the distributed phase's host ingress runs beside the phases before it
+    ingress = start_dist_ingress(args.scale, DIST_K)
+    try:
+        return run_phases(args, ingress)
+    finally:
+        stop_dist_ingress(ingress)
+
+
+def run_phases(args, ingress) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import segment_combine as sc
 
@@ -966,7 +1358,13 @@ def main() -> int:
             raise AssertionError(f"the {route} route launched no kernel")
     check_lanes(part, sources, multi, single0)
     log("main_path", json.dumps(runs))
-    del graph, ugraph, part, upart, multi, single0, ref
+    # the distributed phase: the single-shard partitions go first
+    del part, upart, multi, single0
+    torch.cuda.empty_cache()
+    single_steps = {r["program"]: r["supersteps"] for r in runs}
+    inputs = dist_inputs(ingress)
+    _, _, dist_errs = dist_phase(inputs, ref, source, single_steps)
+    del graph, ugraph, ref, inputs
     torch.cuda.empty_cache()
 
     attn = attention_kernel_phase(args.reps)
@@ -982,8 +1380,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES["dense" if route == "dense" else "tile"],
             "launches": launches[route],
-            "max_abs_err": max(r["max_abs_err"] for r in records
-                               if r["route"] == route),
+            "max_abs_err": max([r["max_abs_err"] for r in records
+                                if r["route"] == route]
+                               + [dist_errs.get(route, 0.0)]),
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": "bytes",
             "library_ms": rec["library_ms"]})

@@ -62,11 +62,18 @@ class DevicePartition:
     pointer of the dst-sorted columns (`segment_row_pointer`), built once
     at ingress for the combine kernel's dense route; None when the edges
     are not sorted by dst.
+
+    `shards` > 1 lays that many shards end to end in one slot space (the
+    distributed engine's stacked layout, `repro_torch.core.dist_engine`):
+    `num_slots` is then the total, each shard owning `num_slots // shards`
+    slots whose first `num_masters` are its masters.  Edge columns are
+    optional: a partition that only anchors slot statics and `aux` for
+    apply carries none.  `device` is always set.
     """
 
-    src: torch.Tensor             # [E_pad] int32 local src slot
-    dst: torch.Tensor             # [E_pad] int32 local dst slot
-    edge_mask: torch.Tensor       # [E_pad] bool, False on padding
+    src: Optional[torch.Tensor]        # [E_pad] int32 src slot
+    dst: Optional[torch.Tensor]        # [E_pad] int32 dst slot
+    edge_mask: Optional[torch.Tensor]  # [E_pad] bool, False on padding
     num_masters: int
     num_slots: int
     edges_sorted_by_dst: bool
@@ -82,10 +89,23 @@ class DevicePartition:
     bucket_sizes: tuple = ()
     bucket_max_deg: tuple = ()
     seg_ptr: Optional[torch.Tensor] = None      # [num_slots + 1] int32
+    shards: int = 1
+    device: Optional[torch.device] = None
 
-    @property
-    def device(self) -> torch.device:
-        return self.src.device
+    def __post_init__(self):
+        if self.device is None:
+            raise ValueError("DevicePartition needs its `device`")
+
+    def master_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The master rows of `x`, whose rows are `shards` equal blocks
+        each led by its shard's masters (the slot space, or a compact
+        master space of `num_masters + 1` rows a shard):
+        `[shards * num_masters, *payload]`."""
+        if self.shards == 1:
+            return x[:self.num_masters]
+        blocks = x.reshape((self.shards, -1) + tuple(x.shape[1:]))
+        return blocks[:, :self.num_masters].reshape(
+            (-1,) + tuple(x.shape[1:]))
 
     @staticmethod
     def from_graph(graph, pad_to: Optional[int] = None,
@@ -134,7 +154,8 @@ class DevicePartition:
         None) and the dicts `edge_props` and `aux`, e.g. `np.asarray` of
         every field of a JAX-package `DevicePartition`; `statics` holds
         `num_masters`, `num_slots`, `edges_sorted_by_dst`, `csr_max_deg`,
-        `bucket_sizes` and `bucket_max_deg`.  Adds the row pointer."""
+        `bucket_sizes` and `bucket_max_deg`, and optionally `shards`.  Adds
+        the row pointer."""
         dev = resolve_device(device)
 
         def opt(key):
@@ -146,6 +167,7 @@ class DevicePartition:
             num_masters=int(statics["num_masters"]),
             num_slots=int(statics["num_slots"]),
             edges_sorted_by_dst=bool(statics["edges_sorted_by_dst"]),
+            shards=int(statics.get("shards", 1)), device=dev,
             edge_props={k: _to(a, dev)
                         for k, a in (arrays.get("edge_props") or {}).items()},
             aux={k: _to(a, dev) for k, a in (arrays.get("aux") or {}).items()},
@@ -155,7 +177,7 @@ class DevicePartition:
             bucket_sizes=tuple(int(s) for s in statics.get("bucket_sizes", ())),
             bucket_max_deg=tuple(int(d) for d in
                                  statics.get("bucket_max_deg", ())))
-        if part.edges_sorted_by_dst:
+        if part.edges_sorted_by_dst and part.dst is not None:
             part.seg_ptr = segment_row_pointer(part.dst, part.num_slots)
         return part
 
@@ -166,14 +188,16 @@ class EngineState:
 
     `step` is the superstep counter, kept on the host (the loop's halt test
     reads it every superstep).  `lane_active` is the optional per-lane halt
-    tracker (`[D]` bool) of multi-source programs.
+    tracker (`[D]` bool) of multi-source programs.  On a partition of k
+    stacked shards the columns run over all shards' masters and slots in
+    shard order, and `lane_active` is `[k, D]`, one row a shard.
     """
 
-    vertex_data: torch.Tensor     # [num_masters, *V]
+    vertex_data: torch.Tensor     # [shards * num_masters, *V]
     scatter_data: torch.Tensor    # [num_slots, *S]
     active_scatter: torch.Tensor  # [num_slots] bool
     step: int = 0
-    lane_active: Optional[torch.Tensor] = None  # [D] bool
+    lane_active: Optional[torch.Tensor] = None  # [D] bool, [k, D] stacked
 
     @staticmethod
     def from_arrays(arrays: Dict[str, object], device="cuda") -> "EngineState":
@@ -233,13 +257,14 @@ class GREEngine:
                                else not program.halts)
         self.frontier_hist = None   # set by calibrate_frontier_cap
 
-    def make_plan(self, phases: str = "sync") -> SuperstepPlan:
+    def make_plan(self, phases: str = "sync",
+                  staleness: int = 0) -> SuperstepPlan:
         """The engine's SuperstepPlan, rebuilt on demand so
         `calibrate_frontier_cap`'s capacity update is honored."""
         return SuperstepPlan(strategy=self.frontier,
                              frontier_cap=self.frontier_cap,
                              dense_frontier=self.dense_frontier,
-                             phases=phases)
+                             phases=phases, staleness=staleness)
 
     def calibrate_frontier_cap(self, part: DevicePartition,
                                state: EngineState, probe_steps: int = 2
@@ -358,10 +383,11 @@ class GREEngine:
     def apply(self, part: DevicePartition, state: EngineState,
               combined: torch.Tensor) -> EngineState:
         """Phase 2: fold combine_data into vertex_data; assert_to_halt.
-        Returns a new state; `state` is not modified."""
+        Returns a new state; `state` is not modified.  `combined` holds
+        each shard's masters first (`DevicePartition.master_rows`)."""
         p = self.program
-        n = part.num_masters
-        combined_m = combined[:n]
+        n, k = part.num_masters, part.shards
+        combined_m = part.master_rows(combined)
         aux = dict(part.aux)
         aux["step"] = state.step
         act_apply = p.combine_activates(state.vertex_data, combined_m)
@@ -369,20 +395,27 @@ class GREEngine:
                                                  combined_m, aux)
         vertex_data = torch.where(_bcast(act_apply, new_vd), new_vd,
                                   state.vertex_data)
-        sd = state.scatter_data
-        scatter_data = torch.cat([
-            torch.where(_bcast(act_apply, new_sd), new_sd.to(p.msg_dtype),
-                        sd[:n]), sd[n:]])
+        # per shard: masters take the new scatter data, agents keep theirs
+        payload = tuple(state.scatter_data.shape[1:])
+        sd = state.scatter_data.reshape((k, -1) + payload)
+        masters = torch.where(_bcast(act_apply, new_sd),
+                              new_sd.to(p.msg_dtype),
+                              sd[:, :n].reshape((-1,) + payload))
+        scatter_data = torch.cat([masters.reshape((k, n) + payload),
+                                  sd[:, n:]], dim=1).reshape(
+                                      state.scatter_data.shape)
         if p.halts:  # traversal: only improved vertices scatter next round
             next_active = act_apply & act_scatter
         else:        # iterative: activity is whatever apply asserts
             next_active = act_scatter
-        active = torch.cat([next_active,
-                            torch.zeros_like(state.active_scatter[n:])])
+        rest = state.active_scatter.reshape(k, -1)[:, n:]
+        active = torch.cat([next_active.reshape(k, n),
+                            torch.zeros_like(rest)], dim=1).reshape(-1)
         lane_active = state.lane_active
         if lane_active is not None and p.lane_activates is not None:
-            lane_active = p.lane_activates(state.vertex_data,
-                                           combined_m).any(dim=0)
+            lanes = p.lane_activates(state.vertex_data, combined_m)
+            lane_active = (lanes.any(dim=0) if k == 1 else
+                           lanes.reshape((k, n, -1)).any(dim=1))
         return EngineState(vertex_data, scatter_data, active, state.step + 1,
                            lane_active)
 

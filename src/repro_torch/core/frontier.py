@@ -36,6 +36,7 @@ from typing import TYPE_CHECKING, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.core.vertex_program import segment_combine
 from repro_torch.kernels import ops as kernel_ops
 
 if TYPE_CHECKING:  # pragma: no cover - typing only, avoids a cycle
@@ -172,8 +173,9 @@ def dense_masked_combine(program: "VertexProgram", part: "DevicePartition",
     live = src_mask.index_select(0, part.src) & part.edge_mask
     live = live.reshape(live.shape + (1,) * (msgs.dim() - live.dim()))
     msgs = torch.where(live, msgs.to(p.msg_dtype), p.monoid.identity)
-    return kernel_ops.segment_combine(msgs, part.dst, num_segments,
-                                      p.monoid.name, seg_ptr=part.seg_ptr)
+    return segment_combine(msgs, part.dst, num_segments, p.monoid,
+                           indices_are_sorted=part.edges_sorted_by_dst,
+                           seg_ptr=part.seg_ptr)
 
 
 class FrontierCounts(NamedTuple):

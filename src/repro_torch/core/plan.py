@@ -2,10 +2,13 @@
 
 A `SuperstepPlan` composes the frontier stage (`dense` every-edge scan,
 `flat` single-tile compaction, or degree-`bucketed` tiles, with the static
-capacity split — `resolve_frontier`) with the exchange phase shape.  This
-package runs the `sync` shape only: the whole ⊕-reduce is one phase and the
-merge is the identity.  The combine kernel is not a plan stage here: the
-route follows the tensors' device (`repro_torch.kernels.ops`).
+capacity split — `resolve_frontier`) with the exchange phase shape: `sync`
+(the whole ⊕-reduce is one phase and the merge is the identity),
+`pipelined` (a two-slot `Mailbox` carry whose flush merges at the top of
+the next superstep) or `async` (a `staleness`-deep ring flushed once per
+window; `repro_torch.core.exchange`).  The combine kernel is not a plan
+stage here: the route follows the tensors' device
+(`repro_torch.kernels.ops`).
 
 `execute_plan` is the BSP loop, an eager Python loop with the shape of the
 JAX package's `lax.while_loop`: the first phase runs before the loop under
@@ -24,7 +27,7 @@ import torch
 if TYPE_CHECKING:  # pragma: no cover - typing only, avoids a cycle
     from repro_torch.core.engine import DevicePartition, EngineState, GREEngine
 
-PHASES = ("sync",)
+PHASES = ("sync", "pipelined", "async")
 
 
 class FrontierPlan(NamedTuple):
@@ -72,17 +75,27 @@ def resolve_frontier(strategy: str, frontier_cap: Optional[int],
 
 @dataclasses.dataclass(frozen=True)
 class SuperstepPlan:
-    """One engine mode: frontier strategy request and phase shape."""
+    """One engine mode: frontier strategy request and phase shape.
+
+    `staleness` is the async ring depth k (collectives once per k
+    supersteps), 0 for the synchronous shapes.
+    """
 
     strategy: str = "auto"
     frontier_cap: Optional[int] = None
     dense_frontier: bool = False
     phases: str = "sync"
+    staleness: int = 0
 
     def __post_init__(self):
         if self.phases not in PHASES:
-            raise ValueError(f"phases={self.phases!r}: this package runs "
-                             f"{PHASES} only")
+            raise ValueError(f"phases={self.phases!r}: choose from {PHASES}")
+        if self.phases == "async" and self.staleness < 1:
+            raise ValueError("phases='async' needs staleness >= 1 "
+                             f"(got {self.staleness})")
+        if self.phases != "async" and self.staleness != 0:
+            raise ValueError(f"staleness={self.staleness} is only "
+                             "meaningful with phases='async'")
 
     def frontier(self, part: "DevicePartition") -> FrontierPlan:
         return resolve_frontier(self.strategy, self.frontier_cap,
@@ -114,14 +127,30 @@ def execute_superstep(engine: "GREEngine", part: "DevicePartition",
 
 def execute_plan(engine: "GREEngine", part: "DevicePartition",
                  state: "EngineState", exchange,
-                 max_steps: int = 100) -> "EngineState":
+                 max_steps: int = 100, any_active=None) -> "EngineState":
     """THE BSP loop: run `engine.program` to quiescence (no vertex
-    scatter-active and no pending carry) or `max_steps` applies."""
+    scatter-active and no pending carry) or `max_steps` applies.
+
+    `any_active` globalises the halt test: it receives the local "still
+    work here" flag (a bool tensor: frontier non-empty or the carry still
+    holding in-flight contributions, `exchange.carry_pending`) and returns
+    the verdict over every shard as a Python bool; the distributed engine
+    passes its communicator's `any`.  The default reads the flag, one host
+    read a superstep either way.  Counting the carry matters for the async
+    shape only: its ring holds remote partials flushed once per window and
+    its `dirty` bit improvements the next refresh has yet to push.
+    """
+    globalize = any_active or bool
     pending = getattr(exchange, "carry_pending", lambda carry: False)
 
     def keep_going(s, carry) -> bool:
-        return s.step < max_steps and (bool(s.active_scatter.any())
-                                       or bool(pending(carry)))
+        if s.step >= max_steps:
+            return False
+        local = s.active_scatter.any()
+        held = pending(carry)
+        if held is not False:
+            local = local | held
+        return globalize(local)
 
     def phase(s, carry):
         s = exchange.refresh(s)

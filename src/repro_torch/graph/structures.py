@@ -55,6 +55,26 @@ class Graph:
         props = {k: np.concatenate([v, v]) for k, v in self.edge_props.items()}
         return Graph(self.num_vertices, src, dst, props, dict(self.vertex_props))
 
+    def iter_edge_chunks(self, chunk_size: int):
+        """Yield the edge stream as `EdgeChunk` slices of at most
+        `chunk_size` rows, in stream order (the chunk-source protocol's
+        reference producer, see `EdgeChunkSource`)."""
+        for lo in range(0, self.num_edges, chunk_size):
+            hi = min(lo + chunk_size, self.num_edges)
+            yield EdgeChunk(
+                src=self.src[lo:hi], dst=self.dst[lo:hi],
+                props={k: v[lo:hi] for k, v in self.edge_props.items()},
+                offset=lo)
+
+    def chunk_source(self, chunk_size: int) -> "EdgeChunkSource":
+        """Wrap this in-memory graph as an `EdgeChunkSource` (views, no
+        copies), so the chunked ingress reads it through the same protocol
+        an out-of-core producer implements."""
+        return EdgeChunkSource(
+            num_vertices=self.num_vertices, num_edges=self.num_edges,
+            prop_dtypes={k: v.dtype for k, v in self.edge_props.items()},
+            chunks=lambda: self.iter_edge_chunks(chunk_size))
+
     def dedup(self) -> "Graph":
         """Drop duplicate (src, dst) pairs and self loops."""
         keep = self.src != self.dst
@@ -64,6 +84,47 @@ class Graph:
         props = {k: v[sel] for k, v in self.edge_props.items()}
         return Graph(self.num_vertices, self.src[sel], self.dst[sel], props,
                      dict(self.vertex_props))
+
+
+@dataclasses.dataclass
+class EdgeChunk:
+    """One contiguous slice of an edge stream, in stream order: the unit
+    the streaming partitioners (`repro_torch.core.partition_stream`) and
+    the chunked `build_agent_graph` consume, so the host never holds a
+    second full copy of the edge list."""
+
+    src: np.ndarray                 # [b] source vertex ids
+    dst: np.ndarray                 # [b] destination vertex ids
+    props: Dict[str, np.ndarray]    # per-edge property slices, each [b]
+    offset: int                     # stream position of row 0
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.src.shape[0])
+
+
+@dataclasses.dataclass
+class EdgeChunkSource:
+    """The chunk-source protocol: restartable edge-stream metadata.
+
+    `chunks()` returns a fresh iterator over the stream (multi-pass ingress:
+    `build_agent_graph` streams once to size the per-shard tiles and once
+    to fill them); `num_vertices`, `num_edges` and `prop_dtypes` are the
+    only whole-graph facts a consumer may rely on.  `Graph.chunk_source` is
+    the in-memory implementation.
+    """
+
+    num_vertices: int
+    num_edges: int
+    prop_dtypes: Dict[str, np.dtype]
+    chunks: "object"                # callable -> iterator of EdgeChunk
+
+
+def as_chunk_source(graph_or_source, chunk_size: int = 1 << 18):
+    """Accept either a `Graph` or an `EdgeChunkSource`-shaped object."""
+    if hasattr(graph_or_source, "chunks"):
+        return graph_or_source
+    return graph_or_source.chunk_source(chunk_size)
 
 
 def pad_edges(src: np.ndarray, dst: np.ndarray, target: int,

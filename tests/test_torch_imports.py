@@ -37,6 +37,27 @@ def test_port_imports_without_jax_or_repro():
     assert out[1].strip() == "[]"
 
 
+DIST_MODULES = ("repro_torch.core.partition",
+                "repro_torch.core.partition_stream",
+                "repro_torch.core.agent_graph", "repro_torch.core.exchange",
+                "repro_torch.core.dist_engine", "repro_torch.dist",
+                "repro_torch.dist.comm")
+
+
+@pytest.mark.parametrize("module", DIST_MODULES)
+def test_distributed_modules_stand_alone(module):
+    """Each module of the distributed engine imports on its own, with
+    neither `jax` nor `repro` loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
 def test_port_sources_never_import_jax_or_repro():
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|,|$)",
                          re.M)
@@ -61,6 +82,11 @@ def test_cuda_entry_points_raise_without_a_card():
                                  "scatter_data": np.zeros(4, np.float32),
                                  "active_scatter": np.zeros(4, bool)})
     assert DevicePartition.from_graph(g, device="cpu").device.type == "cpu"
+    from repro_torch.core import algorithms
+    from repro_torch.core.dist_engine import DistGREEngine
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DistGREEngine(algorithms.sssp_program(), 2, **kw)
 
 
 def test_lm_entry_points_raise_without_a_card():

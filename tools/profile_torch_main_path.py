@@ -2,7 +2,7 @@
 """Device-time breakdown of the PyTorch port's main paths on one NVIDIA card.
 
   python3 tools/profile_torch_main_path.py [--scale 22] [--src DIR]
-                                          [--lm-only]
+                                          [--lm-only | --dist]
 
 Graph path: builds the inputs of `chip_smoke.py` with its own `build_inputs`
 (Graph500 R-MAT a=0.57, b=c=0.19, edge factor 16, seed 0, weights; both
@@ -13,6 +13,14 @@ seeded 0) as `chip_smoke.py` serves it: one prefill of B=4 x 2048 tokens,
 8 decode steps of B=4 after it, and the continuous batcher serving 16
 requests (prompt lengths uniform in 128-2048, numpy seed 0, 32 new tokens
 each, 8 slots, max_len 2112).
+Distributed path (`--dist`, alone): the directed graph of `chip_smoke.py`
+on its k = 8 HDRF shards stacked on the card, through `chip_smoke`'s own
+ingress, and PageRank (30 supersteps) and SSSP ("auto") under the agent,
+dense and pipelined exchanges.  Device time is grouped by layer as well:
+kernels launched inside the exchanges' gathers, scatters, flush routes
+and shard-axis reductions (`repro_torch.core.exchange`,
+`repro_torch.dist.comm`) are "exchange", inside `GREEngine.apply`
+"apply"; the combine kernel keeps its own group wherever it runs.
 
 Each program runs once to warm up, then once under `torch.profiler`.  For
 each it prints one JSON line: the wall time of the traced run, the
@@ -28,11 +36,13 @@ script, so two commits are measured alike in one call.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -76,7 +86,71 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile(name, fn):
+LAYER = "layer:"
+
+
+def labelled(label, fn):
+    """`fn` inside a profiler range named for its layer."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(LAYER + label):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def label_dist_layers():
+    """Wrap the exchange and apply layers of the port in labelled ranges
+    (module globals, looked up at call time by their callers)."""
+    from repro_torch.core import exchange
+    from repro_torch.core.engine import GREEngine
+    from repro_torch.dist.comm import StackedComm
+    for name in ("refresh_scatter_agents", "flush_combiners", "_gather"):
+        setattr(exchange, name, labelled("exchange",
+                                         getattr(exchange, name)))
+    exchange.CombineRoute.combine = labelled("exchange",
+                                             exchange.CombineRoute.combine)
+    for name in ("all_to_all", "psum", "pmin", "pmax"):
+        setattr(StackedComm, name, labelled("exchange",
+                                            getattr(StackedComm, name)))
+    GREEngine.apply = labelled("apply", GREEngine.apply)
+
+
+def layer_of(evt):
+    """The label of the innermost layer range around a CPU op, or None."""
+    while evt is not None:
+        if evt.name.startswith(LAYER):
+            return evt.name[len(LAYER):]
+        evt = evt.cpu_parent
+    return None
+
+
+def by_layer(prof, by_group_ms: dict) -> dict:
+    """Device ms by layer: a kernel an op launched goes to the layer range
+    the op ran in; the combine kernel, wherever it runs, and the kernels no
+    op owns (those launched through ctypes) keep their name group
+    (`by_group_ms`, the name groups of every device kernel)."""
+    from torch.autograd import DeviceType
+    out, owned = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        layer = None
+        for kern in e.kernels:
+            g = group_of(kern.name)
+            if g == "combine_kernel":
+                continue
+            layer = layer or layer_of(e) or ""
+            ms = kern.duration / 1e3
+            owned[g] = owned.get(g, 0.0) + ms
+            out[layer or g] = out.get(layer or g, 0.0) + ms
+    for g, ms in by_group_ms.items():
+        rest = ms - owned.get(g, 0.0)
+        if rest > 0.0:
+            out[g] = out.get(g, 0.0) + rest
+    return dict(sorted(out.items()))
+
+
+def profile(name, fn, layers=False):
     from torch.profiler import ProfilerActivity
     from torch.autograd import DeviceType
     fn()                                  # warm-up: allocator, build, caches
@@ -87,7 +161,10 @@ def profile(name, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a layer range also shows on the device timeline, spanning its
+    # kernels; it is no kernel of its own
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(LAYER)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
     by_group, intervals = {}, []
@@ -101,6 +178,9 @@ def profile(name, fn):
            "kernels": len(kernels),
            "device_ms_by_group": {g: v / 1e3 for g, v in
                                   sorted(by_group.items())}}
+    if layers:
+        rec["device_ms_by_layer"] = by_layer(prof,
+                                             rec["device_ms_by_group"])
     print(json.dumps(rec), flush=True)
 
 
@@ -157,6 +237,35 @@ def profile_graph(scale: int) -> None:
     profile("bfs_x32", run(algorithms.bfs_program(32), part, sources))
 
 
+def profile_dist(scale: int) -> None:
+    from chip_smoke import (DIST_K, dist_inputs, start_dist_ingress,
+                            stop_dist_ingress)
+    from repro_torch.core import algorithms
+    from repro_torch.core.dist_engine import DistGREEngine
+
+    ingress = start_dist_ingress(scale, DIST_K, ("directed",))
+    try:
+        ag, topos, _ = dist_inputs(ingress)["directed"]
+    finally:
+        stop_dist_ingress(ingress)
+    # chip_smoke's source: the highest out-degree, lowest original id
+    outdeg = np.zeros(ag.num_vertices)
+    real = ag.new2old >= 0
+    outdeg[ag.new2old[real]] = ag.out_degree.reshape(-1)[real]
+    source = int(outdeg.argmax())
+    label_dist_layers()
+    for exchange in ("agent", "dense", "pipelined"):
+        topo = topos["tiles" if exchange == "pipelined" else "sync"]
+        for name, program, src, steps in (
+                ("pagerank", algorithms.pagerank_program(), None, 30),
+                ("sssp", algorithms.sssp_program(), source, 10_000)):
+            eng = DistGREEngine(program, DIST_K, exchange=exchange)
+            st = eng.init_state(ag, source=src)
+            run = eng.make_run(ag, steps)
+            profile(f"dist_{name}_{exchange}", lambda: run(topo, st),
+                    layers=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -165,6 +274,8 @@ def main() -> int:
                          "e.g. an unpacked git archive of another commit")
     ap.add_argument("--lm-only", action="store_true",
                     help="profile the LM path alone")
+    ap.add_argument("--dist", action="store_true",
+                    help="profile the distributed path alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: needs an NVIDIA card", file=sys.stderr)
@@ -172,9 +283,12 @@ def main() -> int:
     sys.path[:0] = [str(Path(args.src).resolve()), str(ROOT)]
     import repro_torch
     print(json.dumps({"repro_torch": repro_torch.__file__}), flush=True)
-    profile_lm()
-    if not args.lm_only:
-        profile_graph(args.scale)
+    if args.dist:
+        profile_dist(args.scale)
+    else:
+        profile_lm()
+        if not args.lm_only:
+            profile_graph(args.scale)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
     return 0
 
