@@ -73,6 +73,49 @@
    as in step 2: the stacked combine, the flush route, the dense
    exchange's `[k, k·cap]` vectors, the pipelined compact spaces and the
    compacted tiles (one `dist_hold` line a run).
+3c. Incremental re-convergence, single shard, right after step 3 (one
+   `incremental` line a program): a 1% churn delta of the directed graph
+   (numpy seed 21: ~652 K removals and ~652 K adds at scale 22, weights in
+   [1, 100)) on a partition built from the edge stream in chunks with slack
+   for its adds (its first E columns, CSR and row pointer must equal the
+   main path's), and a 1% symmetric churn of the undirected graph on the
+   main path's partition.  `apply_edge_delta`, then per program
+   `warm_start_state` (host seconds of both printed) and the warm run
+   against a cold run on the mutated partition: BFS "compact", SSSP "auto"
+   and CC bitwise equal, PageRank (100 supersteps) within 1e-4.  Each run
+   first goes superstep by superstep, counting its exact edge scans (the
+   active masters' live out-degrees, as benchmarks/bench_incremental.py
+   counts them), untimed; then the timed run with the combine counts set to
+   0 just before and read just after.
+3d. Graph serving, single shard (`graph_serving` lines): a `ServingFrontend`
+   over 8-lane BFS, SSSP and PPR batchers (4 supersteps a tick) serves 48
+   queries arriving by `poisson_ticks` (2 a round, kinds in turn, sources
+   among the vertices with out-edges, numpy seed 0; BFS on compacted
+   frontiers, SSSP "auto", PPR on the dense scan): an untimed pass of the
+   first 6 queries, the timed pass, then the stream again with a small
+   delta (0.01% churn)
+   landing mid-flight on the BFS batcher under "finish" and on the SSSP
+   batcher under "reseed".  Each pass: every BFS and SSSP answer equals a
+   fresh single-source run on the graph its query ran on, bitwise, and the
+   last PPR answer (a recycled lane) a fresh PPR batcher's, bitwise; p50
+   and p99 latency, queries a second, ticks, supersteps, host reads a tick
+   and the combine counts are printed.
+3e. After step 3b, on its stacked shards: SSSP under agent re-converges
+   through `DistGREEngine.rerun_incremental` from step 3c's delta on the
+   directed graph's agent graph built with head-room in its pads (by the
+   child of step 1: the same placement, `pad_multiple` 2**18), from the
+   fixed point of the step-3b agent graph (at scale 22 the two share their
+   master rows); it must equal a cold stacked run on a topology built anew
+   and step 3c's single-shard cold result, bitwise (`dist_incremental`
+   line: host seconds of the delta ingress, warm start, topology rebuild
+   and run).  The compaction fallback runs on an R-MAT scale-16
+   hash-partitioned graph built there.  Then step 3d's BFS queries through
+   an 8-lane batcher ("compact") on the k = 8 shards under agent (an
+   untimed pass of the first 6 first), each held bitwise against step
+   3d's single-shard answer on the unchanged graph (`dist_serving` line).
+   Step 3b's `dist_run` lines also count each run's host reads of the
+   frontier and of a compaction's valid total; the latter must be 0
+   (every tile route passes its count).
 4. Attention kernel phase: the flash-attention kernel against its plain
    version at smollm-135m's prefill shape (B=4, S=2048, 3 kv heads x 3,
    H=64, causal, bf16), a ragged causal length (S=1000, bf16), float32
@@ -624,6 +667,441 @@ def check_lanes(part, sources, multi, single0):
         "runs")
 
 
+# ----------------------------------------------------- incremental phase
+INC_CHURN = 0.01                    # the share of edges a delta retires
+INC_SEED = 21
+INC_HOLD_STEPS = 3                  # warm supersteps whose combines are held
+
+
+def churn_delta(graph, frac, seed, undirected=False):
+    """A churn batch in the shape of tests/test_conformance.py's
+    `_mutation_delta`, from a numpy seed: retire `frac` of the live edges
+    and add about as many fresh random ones (symmetric pairs when
+    `undirected`, so CC's graph stays undirected), with integer weights in
+    [1, 100): exact in f32, so warm == cold stays bitwise."""
+    from repro_torch.graph.structures import EdgeDelta
+    rng = np.random.default_rng(seed)
+    src, dst, n = graph.src, graph.dst, graph.num_vertices
+    if undirected:
+        fwd = np.flatnonzero(src < dst)
+        m = max(1, int(fwd.size * frac))
+        pick = rng.choice(fwd, size=m, replace=False)
+        rem_s = np.concatenate([src[pick], dst[pick]])
+        rem_d = np.concatenate([dst[pick], src[pick]])
+        u = rng.integers(0, n, size=m)
+        v = (u + 1 + rng.integers(0, n - 1, size=m)) % n
+        lo, hi = np.minimum(u, v), np.maximum(u, v)
+        _, first = np.unique(lo * np.int64(n) + hi, return_index=True)
+        keep = np.sort(first)
+        add_s = np.concatenate([u[keep], v[keep]])
+        add_d = np.concatenate([v[keep], u[keep]])
+    else:
+        m = max(1, int(graph.num_edges * frac))
+        pick = rng.choice(graph.num_edges, size=m, replace=False)
+        rem_s, rem_d = src[pick], dst[pick]
+        add_s = rng.integers(0, n, size=m)
+        add_d = rng.integers(0, n, size=m)
+        _, first = np.unique(add_s * np.int64(n) + add_d, return_index=True)
+        keep = np.sort(first)
+        add_s, add_d = add_s[keep], add_d[keep]
+    props = {}
+    for key in graph.edge_props:
+        w = rng.integers(1, 100, size=keep.size).astype(np.float32)
+        props[key] = np.concatenate([w, w]) if undirected else w
+    return EdgeDelta(add_src=add_s, add_dst=add_d, add_props=props,
+                     rem_src=rem_s, rem_dst=rem_d)
+
+
+def counted_run(eng, part, state, max_steps):
+    """The run superstep by superstep, counting its exact edge scans (the
+    active masters' live out-degrees summed over supersteps, as
+    benchmarks/bench_incremental.py counts them).  Returns `(state, scans,
+    supersteps)`."""
+    n = part.num_masters
+    deg = (part.csr_indptr[1:] - part.csr_indptr[:-1])[:n].to(torch.int64)
+    scans = steps = 0
+    while steps < max_steps:
+        live = int(torch.where(state.active_scatter[:n], deg, 0).sum())
+        if not bool(state.active_scatter[:n].any()):
+            break
+        scans += live
+        state = eng.superstep(part, state)
+        steps += 1
+    return state, scans, steps
+
+
+def warm_vs_cold(name, eng, new_part, prev, report, source, max_steps,
+                 seconds):
+    """One program's warm start on the mutated partition against its cold
+    run there: the combine calls of the first INC_HOLD_STEPS warm
+    supersteps held on their own inputs (`hold_block`), the counted pass of each (untimed), then
+    the timed run with the combine counts set to 0 just before and read
+    just after.  Halting
+    programs must agree bitwise (and with their counted passes); PageRank
+    within 1e-4.  Returns `(record, cold vertex data)`."""
+    from repro_torch.kernels import segment_combine as sc
+    t0 = time.perf_counter()
+    warm0 = eng.warm_start_state(new_part, prev, report, source=source)
+    torch.cuda.synchronize()
+    seconds = dict(seconds, warm_start_state=time.perf_counter() - t0)
+    cold0 = eng.init_state(new_part, source=source)
+    rec = {"program": name, "host_s": seconds}
+
+    # the combine calls of the first warm supersteps, held on their inputs
+    def first_steps(state=warm0):
+        for _ in range(INC_HOLD_STEPS):
+            state = eng.superstep(new_part, state)
+
+    rec["held"] = hold_block(f"incremental {name} warm", first_steps)
+    if not rec["held"]:
+        raise AssertionError(f"incremental {name}: no combine call held")
+    outs = {}
+    for kind, st0 in (("warm", warm0), ("cold", cold0)):
+        counted, scans, steps = counted_run(eng, new_part, st0, max_steps)
+        sc.reset_launches()
+        out, ms = timed(lambda: eng.run(new_part, st0, max_steps))
+        rec[kind] = {"supersteps": out.step, "wall_ms": ms,
+                     "edge_scans": scans, "launches": dict(sc.LAUNCHES)}
+        if out.step != steps or not torch.equal(out.vertex_data,
+                                                counted.vertex_data):
+            raise AssertionError(f"incremental {name} {kind}: the run and "
+                                 "its counted pass differ")
+        outs[kind] = out.vertex_data
+    if eng.program.halts:
+        if not torch.equal(outs["warm"], outs["cold"]):
+            bad = int((outs["warm"] != outs["cold"]).sum())
+            raise AssertionError(f"incremental {name}: warm != cold at "
+                                 f"{bad} vertices")
+    else:
+        np.testing.assert_allclose(outs["warm"].cpu().numpy(),
+                                   outs["cold"].cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    rec["scan_ratio"] = rec["cold"]["edge_scans"] / max(
+        rec["warm"]["edge_scans"], 1)
+    log("incremental", json.dumps(rec))
+    return rec, outs["cold"]
+
+
+def incremental_phase(graph, ugraph, part, upart, source):
+    """Incremental re-convergence on one shard at the main path's scale: a
+    1% churn delta of the directed graph (BFS "compact", SSSP "auto" and
+    PageRank, 100 supersteps) on a partition built with slack for it, and
+    one of the undirected graph (CC) on the main path's partition.  The
+    body of
+    `GREEngine.rerun_incremental` (`apply_edge_delta`, `warm_start_state`,
+    `run`), split so one delta serves three programs and each run gets an
+    untimed pass first.  (The undirected delta adds no more edges than it
+    retires, so the main path's partition holds it without slack.)
+    Returns the records, the delta and SSSP's cold result on the mutated
+    graph."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.engine import DevicePartition, GREEngine
+    from repro_torch.kernels import segment_combine as sc
+    t_phase = time.perf_counter()
+    delta = churn_delta(graph, INC_CHURN, INC_SEED)
+    udelta = churn_delta(ugraph, INC_CHURN, INC_SEED + 12, undirected=True)
+    log(f"incremental_delta adds={delta.num_adds} "
+        f"removes={delta.num_removes} undirected_adds={udelta.num_adds} "
+        f"undirected_removes={udelta.num_removes}")
+    # the slack partition, built from the edge stream in chunks: its first
+    # E columns, CSR and row pointer are the main path partition's
+    t0 = time.perf_counter()
+    spart = DevicePartition.from_graph(graph, edge_slack=delta.num_adds,
+                                       chunk_size=1 << 22, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    e = graph.num_edges
+    same = [torch.equal(spart.src[:e], part.src[:e]),
+            torch.equal(spart.dst[:e], part.dst[:e]),
+            torch.equal(spart.edge_props["weight"][:e],
+                        part.edge_props["weight"][:e]),
+            torch.equal(spart.csr_indptr, part.csr_indptr),
+            torch.equal(spart.csr_eidx[:e], part.csr_eidx[:e]),
+            torch.equal(spart.seg_ptr[:-1], part.seg_ptr[:-1]),
+            int(spart.seg_ptr[-1]) == e + delta.num_adds]
+    if not all(same):
+        raise AssertionError(f"chunked slack partition differs: {same}")
+    t0 = time.perf_counter()
+    new_part, report = spart.apply_edge_delta(delta)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    del spart
+    if report.compacted or report.num_removed != delta.num_removes:
+        raise AssertionError(f"delta ingress: compacted={report.compacted} "
+                             f"removed={report.num_removed}")
+    sink = int(new_part.seg_ptr[-1] - new_part.seg_ptr[-2])
+    if sink != new_part.src.shape[0] - int(new_part.edge_mask.sum()):
+        raise AssertionError("the row pointer's sink segment does not hold "
+                             "every tombstone and padding slot")
+    log(f"incremental_ingress slack_build_s={build_s:.3f} "
+        f"apply_edge_delta_s={apply_s:.3f} removed={report.num_removed} "
+        f"sink_segment_edges={sink}")
+    records, launches = [], {r: 0 for r in sc.LAUNCHES}
+    sssp_cold = None
+    for name, factory, frontier, steps in (
+            ("bfs_compact", "bfs_program", "compact", 10_000),
+            ("sssp", "sssp_program", "auto", 10_000),
+            ("pagerank", "pagerank_program", "auto", 100)):
+        eng = GREEngine(getattr(algorithms, factory)(), frontier=frontier)
+        seeded = name != "pagerank"
+        prev = eng.run(part, eng.init_state(
+            part, source=source if seeded else None), steps)
+        rec, cold = warm_vs_cold(name, eng, new_part, prev, report,
+                                 source if seeded else None, steps,
+                                 {"apply_edge_delta": apply_s})
+        records.append(rec)
+        for r in launches:
+            launches[r] += rec["warm"]["launches"][r]
+        if name == "sssp":
+            sssp_cold = cold.cpu().numpy()
+    del new_part
+    eng = GREEngine(algorithms.cc_program())
+    prev = eng.run(upart, eng.init_state(upart), 10_000)
+    t0 = time.perf_counter()
+    new_upart, ureport = upart.apply_edge_delta(udelta)
+    torch.cuda.synchronize()
+    uapply_s = time.perf_counter() - t0
+    rec, _ = warm_vs_cold("cc", eng, new_upart, prev, ureport, None, 10_000,
+                          {"apply_edge_delta": uapply_s})
+    rec["compacted"] = ureport.compacted
+    records.append(rec)
+    for r in launches:
+        launches[r] += rec["warm"]["launches"][r]
+    del new_upart
+    torch.cuda.empty_cache()
+    for route in ("dense", "tile"):
+        if launches[route] <= 0:
+            raise AssertionError(f"incremental: no {route}-route launch in "
+                                 f"the warm runs {launches}")
+        if not any(key.startswith(route) for r in records
+                   for key in r["held"]):
+            raise AssertionError(f"incremental: no {route}-route call held")
+    log(f"incremental_phase_s={time.perf_counter() - t_phase:.3f} "
+        f"warm_launches={json.dumps(launches)}")
+    return records, delta, sssp_cold
+
+
+# ---------------------------------------------------- graph serving phase
+SERVE_LANES = 8
+SERVE_QUERIES = 48
+SERVE_RATE = 2.0                    # expected arrivals a round
+SERVE_STEPS_PER_TICK = 4
+SERVE_KINDS = ("bfs", "sssp", "ppr")
+SERVE_DELTA_ROUNDS = {"finish": ("bfs", 4), "reseed": ("sssp", 6)}
+# BFS on compacted frontiers (the tile route), as the main path's
+# `bfs_compact`; SSSP "auto" (the dense scan at scale 22); PPR is pinned to
+# the dense scan by its batcher
+SERVE_FRONTIER = {"bfs": "compact", "sssp": "auto", "ppr": "auto"}
+SERVE_WARMUP = 6                    # queries of the untimed first pass
+
+
+def serving_stream(graph, seed=0):
+    """`(arrival round, kind, source)` of each query: `poisson_ticks`
+    arrivals (rate SERVE_RATE), kinds in turn, sources drawn without
+    replacement among the vertices with out-edges (numpy seed)."""
+    from repro_torch.serving import poisson_ticks
+    rng = np.random.default_rng(seed)
+    cands = np.flatnonzero(graph.out_degree() > 0)
+    sources = rng.choice(cands, size=SERVE_QUERIES, replace=False)
+    arrive = poisson_ticks(SERVE_QUERIES, SERVE_RATE, rng)
+    return [(int(a), SERVE_KINDS[i % 3], int(s))
+            for i, (a, s) in enumerate(zip(arrive, sources))]
+
+
+def drive_stream(frontend, stream, deltas=None, on_delta=None):
+    """Submit each query at its arrival round and step the frontend until
+    it drains.  `deltas` maps a round to `(kind, delta, policy)`, applied
+    at the first round from it where that batcher holds a resident, then
+    `on_delta(batcher, policy)`.  Returns `(queries, rounds, wall s,
+    partition each query ran on)`."""
+    pending = list(stream)
+    deltas = dict(deltas or {})
+    queries, ran_on = [], {}
+    rnd = 0
+    t0 = time.perf_counter()
+    while pending or not frontend.idle:
+        while pending and pending[0][0] <= rnd:
+            _, kind, s = pending.pop(0)
+            queries.append(frontend.submit(kind, s))
+        for at in [r for r in deltas if r <= rnd]:
+            kind, delta, policy = deltas[at]
+            b = frontend.batchers[kind]
+            if b.busy:
+                b.apply_delta(delta, policy=policy)
+                del deltas[at]
+                if on_delta:
+                    on_delta(b, policy)
+                if policy == "reseed":
+                    for q in b._lane_query:
+                        if q is not None:
+                            ran_on[id(q)] = b._part
+        frontend.step()
+        for b in frontend.batchers.values():
+            for q in b._lane_query:
+                if q is not None and id(q) not in ran_on:
+                    ran_on[id(q)] = getattr(b, "_part", None)
+        rnd += 1
+    torch.cuda.synchronize()
+    if deltas:
+        raise AssertionError(f"deltas never landed mid-flight: {deltas}")
+    return queries, rnd, time.perf_counter() - t0, ran_on
+
+
+def serving_record(name, queries, rounds, wall_s, batchers):
+    """Latency percentiles, queries a second, ticks, supersteps and host
+    reads a tick of one served stream (host clock)."""
+    from repro_torch.core.frontier import HOST_READS as FRONTIER_READS
+    from repro_torch.kernels.segment_combine import HOST_READS
+    from repro_torch.serving.graph_scheduler import _percentile
+    lat = sorted(q.latency_s for q in queries)
+    ticks = sum(b.ticks for b in batchers)
+    reads = (sum(b.host_reads for b in batchers)
+             + FRONTIER_READS["frontier_counts"] + HOST_READS["compact_total"])
+    rec = {"stream": name, "queries": len(queries), "rounds": rounds,
+           "wall_s": wall_s, "queries_per_s": len(queries) / wall_s,
+           "latency_p50_ms": 1e3 * _percentile(lat, 0.50),
+           "latency_p99_ms": 1e3 * _percentile(lat, 0.99),
+           "ticks": ticks, "supersteps": sum(b.supersteps for b in batchers),
+           "host_reads_per_tick": reads / max(ticks, 1),
+           "batcher_reads": sum(b.host_reads for b in batchers),
+           "frontier_reads": FRONTIER_READS["frontier_counts"],
+           "compact_total_reads": HOST_READS["compact_total"]}
+    return rec
+
+
+def graph_serving_phase(graph, part, seed=0):
+    """Graph-query serving at the main path's scale: a `ServingFrontend`
+    over 8-lane BFS, SSSP and PPR batchers (4 supersteps a tick) answers
+    SERVE_QUERIES queries arriving by `poisson_ticks`; one small delta
+    lands mid-flight on the BFS batcher under "finish" and one on the SSSP
+    batcher under "reseed".  Every BFS and SSSP answer must equal a fresh
+    single-source run on the graph its query ran on, bitwise; the last PPR
+    answer (a recycled lane) a fresh PPR batcher's, bitwise.  Before that,
+    the combine calls of each batcher's first tick are held on their own
+    inputs against the plain version (`hold_block`).  Returns the
+    record, the stream and fresh BFS answers on the unchanged graph for
+    the stacked run (step 3e)."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.engine import GREEngine
+    from repro_torch.core.frontier import HOST_READS as FRONTIER_READS
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.serving import GraphQueryBatcher, ServingFrontend
+    t_phase = time.perf_counter()
+    stream = serving_stream(graph, seed)
+    factories = {"bfs": algorithms.bfs_program,
+                 "sssp": algorithms.sssp_program,
+                 "ppr": algorithms.ppr_push_program}
+
+    def batcher(kind):
+        return GraphQueryBatcher(
+            GREEngine(factories[kind](SERVE_LANES),
+                      frontier=SERVE_FRONTIER[kind]), part,
+            steps_per_tick=SERVE_STEPS_PER_TICK)
+
+    def frontend():
+        return ServingFrontend({kind: batcher(kind) for kind in SERVE_KINDS})
+
+    deltas = {at: (kind, churn_delta(graph, 1e-4, seed + 1 + i), policy)
+              for i, (policy, (kind, at)) in enumerate(
+                  sorted(SERVE_DELTA_ROUNDS.items()))}
+    swaps = {}
+
+    def on_delta(b, policy):
+        swaps[policy] = time.perf_counter()
+
+    single = {kind: GREEngine(factories[kind]()) for kind in ("bfs", "sssp")}
+    old_bfs = {}
+
+    def fresh_single(kind, target, source):
+        eng = single[kind]
+        return eng.run(target, eng.init_state(target, source=source),
+                       10_000).vertex_data.cpu().numpy()
+
+    def check(name, queries, ran_on):
+        """Every BFS and SSSP answer against a fresh single-source run on
+        its graph, bitwise; the last PPR answer (a recycled lane) against
+        a fresh PPR batcher's, bitwise.  Returns the count held."""
+        if not all(q.status == "done" for q in queries):
+            raise AssertionError(f"serving {name}: a query did not finish")
+        held = 0
+        for q in queries:
+            if q.kind == "ppr":
+                continue
+            target = ran_on[id(q)]
+            want = fresh_single(q.kind, target, q.source)
+            if not np.array_equal(q.result, want):
+                raise AssertionError(f"serving {name} {q.kind} source "
+                                     f"{q.source}: differs from a fresh "
+                                     "single run")
+            held += 1
+            if q.kind == "bfs" and target is part:
+                old_bfs[q.source] = want
+        ppr = [q for q in queries if q.kind == "ppr"]
+        if len(ppr) <= SERVE_LANES:
+            return held             # no lane recycled yet (the warm-up)
+        last = ppr[-1]
+        fresh = GraphQueryBatcher(GREEngine(factories["ppr"](SERVE_LANES)),
+                                  ran_on[id(last)])
+        fresh.submit(last.source)
+        (ref,) = fresh.run()
+        if not np.array_equal(ref.result, last.result):
+            raise AssertionError(f"serving {name}: a recycled PPR lane "
+                                 "differs from a fresh PPR run")
+        return held + 1
+
+    # the combine calls of each batcher's first tick over its first
+    # SERVE_LANES queries, held on their own inputs: PPR's multi-lane sum
+    # and SSSP's min on the dense scan, BFS's min on the tile route
+    held = {}
+    for kind in SERVE_KINDS:
+        b = batcher(kind)
+        for src in [x[2] for x in stream if x[1] == kind][:SERVE_LANES]:
+            b.submit(src)
+        b.pump()
+        held[kind] = hold_block(f"serving {kind} tick 1", b.tick)
+        del b
+    log("graph_serving_held", json.dumps(held))
+    for kind, want in (("ppr", f"dense:sum:D{SERVE_LANES}:"),
+                       ("sssp", ":min:"), ("bfs", f"tile:min:D{SERVE_LANES}:")):
+        if not any(want in key for key in held[kind]):
+            raise AssertionError(f"serving {kind}: no {want} call held "
+                                 f"{held[kind]}")
+    # an untimed pass of the stream's first queries (first-use costs), the
+    # timed pass, then the stream again with one delta landing under each
+    # policy
+    records = {}
+    for name, sub, mid in (("warm_up", stream[:SERVE_WARMUP], None),
+                           ("timed", stream, None),
+                           ("deltas", stream, deltas)):
+        fe = frontend()
+        sc.reset_launches()
+        FRONTIER_READS["frontier_counts"] = 0
+        queries, rounds, wall_s, ran_on = drive_stream(fe, sub, mid,
+                                                       on_delta)
+        rec = serving_record(name, queries, rounds, wall_s,
+                             list(fe.batchers.values()))
+        rec["launches"] = dict(sc.LAUNCHES)
+        rec["held_bitwise"] = check(name, queries, ran_on)
+        rec["ran_on_mutated_graph"] = sum(
+            ran_on[id(q)] is not part for q in queries)
+        rec["metrics"] = fe.metrics()
+        log("graph_serving", json.dumps(rec))
+        records[name] = rec
+        for route in ("dense", "tile"):
+            if rec["launches"][route] <= 0:
+                raise AssertionError(f"serving {name}: no {route}-route "
+                                     f"launch {rec['launches']}")
+    if sorted(swaps) != ["finish", "reseed"] or \
+            not records["deltas"]["ran_on_mutated_graph"]:
+        raise AssertionError(f"serving: the deltas did not land mid-flight "
+                             f"{sorted(swaps)}")
+    for q_src in [s for _, kind, s in stream if kind == "bfs"]:
+        if q_src not in old_bfs:
+            old_bfs[q_src] = fresh_single("bfs", part, q_src)
+    log(f"graph_serving_phase_s={time.perf_counter() - t_phase:.3f}")
+    return records, stream, old_bfs
+
+
 # ----------------------------------------------------- distributed phase
 DIST_K = 8                          # shards, as the paper's 8 machines
 # (program, exchange, options) of the distributed phase, in run order;
@@ -638,13 +1116,23 @@ DIST_RUNS = (("pagerank", "agent", {}), ("pagerank", "agent", {"overlap": True})
              ("cc", "agent", {}), ("cc", "async", {"staleness": 2}))
 
 
+# The pad multiple of the directed graph's second agent graph (step 3e):
+# room in every pad for a 1% churn delta.  At scale 22 and k = 8 it divides
+# the master capacity 2**19, so both agent graphs share `cap` and
+# `old2new`; at small scales it pads `cap` too.
+SLACK_PAD = 1 << 18
+
+
 def dist_ingress(conn, src: str, scale: int, k: int, key: str) -> None:
     """Host ingress of the distributed phase, run in a child process while
     the parent drives the single-shard phases: the same R-MAT graph as
     `build_inputs` (`key` "directed") or its undirected form (CC), HDRF
     placement onto `k` shards (the JAX package's default partitioner), the
-    agent graph and `partition_quality`.  Sends `(AgentGraph fields,
-    figures)` back through `conn`."""
+    agent graph and `partition_quality`.  For the directed graph it also
+    builds the agent graph of the same placement with head-room in every
+    pad (`pad_multiple=SLACK_PAD`), which a 1% churn delta fits without a
+    rebuild (step 3e).  Sends `(AgentGraph fields, figures, slack fields or
+    None)` back through `conn`."""
     sys.path.insert(0, src)
     try:
         from repro_torch.core.agent_graph import build_agent_graph
@@ -662,13 +1150,19 @@ def dist_ingress(conn, src: str, scale: int, k: int, key: str) -> None:
         t3 = time.perf_counter()
         q = partition_quality(g, part, k=k)
         t4 = time.perf_counter()
+        slack = None
+        if key == "directed":
+            slack = vars(build_agent_graph(g, part, k, partitioner="hdrf",
+                                           pad_multiple=SLACK_PAD))
+        t5 = time.perf_counter()
         conn.send(("ok", (vars(ag), {
             "E": g.num_edges, "graph_s": t1 - t0, "hdrf_s": t2 - t1,
             "ingress_agent_graph_s": t3 - t2, "quality_s": t4 - t3,
+            "slack_agent_graph_s": t5 - t4,
             "replication_factor": q.replication_factor,
             "remote_dst_edge_fraction": q.remote_dst_edge_fraction,
             "edge_balance": q.edge_balance, "agent_comm": q.agent_comm,
-            "vertexcut_comm": q.vertexcut_comm})))
+            "vertexcut_comm": q.vertexcut_comm}, slack)))
     except Exception as exc:            # the parent raises it
         conn.send(("error", repr(exc)))
     finally:
@@ -723,7 +1217,9 @@ def dist_inputs(children):
     build the two stacked topologies of each graph on the card: the sync
     one (edge columns, flush route; the dense backend's route for the
     directed graph) and the split tiles of the pipelined and async
-    backends.  Returns `{key: (ag, {"sync": topo, "tiles": topo}, fig)}`."""
+    backends.  Returns `{key: (ag, {"sync": topo, "tiles": topo}, fig)}`
+    and, under "slack", the directed graph's agent graph with head-room in
+    its pads (no topology)."""
     from repro_torch.core import algorithms
     from repro_torch.core.agent_graph import AgentGraph
     from repro_torch.core.dist_engine import DistGREEngine
@@ -736,8 +1232,10 @@ def dist_inputs(children):
         log(f"dist_ingress_wait_s={time.perf_counter() - t0:.3f} {key}")
         if status != "ok":
             raise RuntimeError(f"distributed ingress failed: {payload}")
-        fields, fig = payload
+        fields, fig, slack = payload
         ag = AgentGraph(**fields)
+        if slack is not None:
+            out["slack"] = AgentGraph(**slack)
         topos = {}
         t0 = time.perf_counter()
         sync = "dense" if key == "directed" else "agent"
@@ -787,13 +1285,17 @@ def dist_run(name, exchange, opts, inputs, ref, source, single_steps,
     oracle check, its superstep count against the single-shard run and its
     launch counts; returns the `dist_run` record."""
     from repro_torch.core.dist_engine import original_order
-    from repro_torch.kernels.segment_combine import LAUNCHES
+    from repro_torch.core.frontier import HOST_READS as FRONTIER_READS
+    from repro_torch.kernels.segment_combine import HOST_READS, LAUNCHES
     eng, ag, topo, st, fig, steps = dist_setup(name, exchange, opts, inputs,
                                                source)
     before = dict(LAUNCHES)
+    reads = (HOST_READS["compact_total"], FRONTIER_READS["frontier_counts"])
     eng.comm.values = 0
     out, ms = timed(lambda: eng.make_run(ag, steps)(topo, st))
     launches = {r: LAUNCHES[r] - before[r] for r in LAUNCHES}
+    compact_reads = HOST_READS["compact_total"] - reads[0]
+    frontier_reads = FRONTIER_READS["frontier_counts"] - reads[1]
     result = original_order(ag, out.vertex_data)
     if not checked:
         return None
@@ -814,6 +1316,9 @@ def dist_run(name, exchange, opts, inputs, ref, source, single_steps,
     if name == "bfs_compact" and launches["tile"] <= 0:
         raise AssertionError(f"dist {name} {exchange}: no tile-route "
                              f"combine launch {launches}")
+    if compact_reads:   # every tile route passes its valid-lane count
+        raise AssertionError(f"dist {name} {exchange}: {compact_reads} "
+                             "host reads of a compaction's valid total")
     vs_vc = fig["V_s"] + fig["V_c"]
     per_step = {"agent": vs_vc, "pipelined": vs_vc,
                 "async": vs_vc / opts.get("staleness", 1),
@@ -822,7 +1327,9 @@ def dist_run(name, exchange, opts, inputs, ref, source, single_steps,
     rec = {"program": name, "exchange": exchange, **opts, "k": ag.k,
            "supersteps": out.step, "wall_ms": ms,
            "edges_per_s": e * out.step / (ms / 1e3) if out.step else 0.0,
-           "launches": launches, "values_per_superstep": per_step,
+           "launches": launches, "compact_total_reads": compact_reads,
+           "frontier_reads": frontier_reads,
+           "values_per_superstep": per_step,
            "comm_values_per_superstep": eng.comm.values / max(out.step, 1)}
     log("dist_run", json.dumps(rec))
     return rec
@@ -858,8 +1365,9 @@ def dist_phase(inputs, ref, source, single_steps):
     log(f"dist_path_s={time.perf_counter() - t0:.3f} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
     log("dist_launches", json.dumps(launches))
-    errs = dist_hold_phase(inputs, source)
-    return runs, launches, errs
+    log("dist_compact_total_reads", sc.HOST_READS["compact_total"])
+    dist_hold_phase(inputs, source)
+    return runs, launches
 
 
 # (program, exchange) whose first DIST_HOLD_STEPS supersteps have every
@@ -925,15 +1433,40 @@ def hold_recorded(name, route, args):
     return hold_combine(name, op, run(), run(), msgs[keep], dst[keep], nseg)
 
 
+# the largest error of every combine-wrapper call held on the path's own
+# inputs (`hold_block`), by route: the kernels line reports it
+HELD_ERRS = {"dense": 0.0, "tile": 0.0}
+
+
+def hold_block(name, fn):
+    """Run `fn()` with its combine-wrapper calls recorded, then hold each
+    call on its own inputs against the plain version (`hold_recorded`):
+    min/max bitwise, sums within SUM_RTOL of the float64 sum.  Returns the
+    calls held by `route:op:D<lanes>:<segments>`; the errors go to
+    HELD_ERRS."""
+    with recorded_combines() as calls:
+        fn()
+    seen = {}
+    for i, (route, args) in enumerate(calls):
+        e = hold_recorded(f"{name} call {i}", route, args)
+        HELD_ERRS[route] = max(HELD_ERRS[route], e["max_abs_err"])
+        m = args["msgs"]
+        d = int(np.prod(m.shape[1:])) if m.dim() > 1 else 1
+        key = f"{route}:{args['op']}:D{d}:{args['num_segments']}"
+        seen[key] = seen.get(key, 0) + 1
+    del calls
+    torch.cuda.synchronize()
+    return seen
+
+
 def dist_hold_phase(inputs, source):
     """Every combine-wrapper call of the first DIST_HOLD_STEPS supersteps
     of each DIST_HOLDS run, held on its own inputs against the plain
-    version (`hold_recorded`): min/max bitwise, sums within SUM_RTOL of the
+    version (`hold_block`): min/max bitwise, sums within SUM_RTOL of the
     float64 sum.  Each run must reach its backend's segment spaces (agent:
     the stacked slots; dense: those and the `[k, k·cap]` vectors;
     pipelined: the compact combiner and master spaces) and the compacted
-    BFS the tile route.  Returns the largest error by route."""
-    errs = {"dense": 0.0, "tile": 0.0}
+    BFS the tile route."""
     held = 0
     for name, exchange in DIST_HOLDS:
         eng, ag, topo, st, _, _ = dist_setup(name, exchange, {}, inputs,
@@ -941,20 +1474,13 @@ def dist_hold_phase(inputs, source):
         k, ns, cap = ag.k, ag.num_slots, ag.cap
         want = {"agent": {k * ns}, "dense": {k * ns, k * k * cap},
                 "pipelined": {k * (ag.c_pad + 1), k * (cap + 1)}}[exchange]
-        with recorded_combines() as calls:
-            eng.make_run(ag, DIST_HOLD_STEPS)(topo, st)
-        seen = {}
-        for i, (route, args) in enumerate(calls):
-            e = hold_recorded(f"dist {name} {exchange} call {i}", route, args)
-            errs[route] = max(errs[route], e["max_abs_err"])
-            key = f"{route}:{args['num_segments']}"
-            seen[key] = seen.get(key, 0) + 1
-        held += len(calls)
-        del calls
+        seen = hold_block(f"dist {name} {exchange}", lambda: eng.make_run(
+            ag, DIST_HOLD_STEPS)(topo, st))
+        held += sum(seen.values())
         log("dist_hold", json.dumps({"program": name, "exchange": exchange,
                                      "supersteps": DIST_HOLD_STEPS,
                                      "held": seen}))
-        spaces = {int(key.split(":")[1]) for key in seen}
+        spaces = {int(key.rsplit(":", 1)[1]) for key in seen}
         if not want <= spaces:
             raise AssertionError(f"dist {name} {exchange}: held segment "
                                  f"spaces {sorted(spaces)}, expected "
@@ -963,9 +1489,151 @@ def dist_hold_phase(inputs, source):
                                              for key in seen):
             raise AssertionError(f"dist {name} {exchange}: no tile-route "
                                  "call to hold")
+    log(f"dist_calls_held={held} max_abs_err={json.dumps(HELD_ERRS)}")
+
+
+# ------------------------------------- distributed incremental and serving
+def dist_incremental_phase(inputs, delta, source, sssp_cold):
+    """SSSP under agent on the k = 8 stacked shards: `rerun_incremental`
+    with the 1% churn delta of step 3c on the directed graph's agent graph
+    with head-room in its pads (the fast path: tombstones, adds on
+    owner(dst), fresh scatter agents), from the fixed point of the step-3b
+    agent graph's run where the two agent graphs share `cap` and `old2new`
+    (scale 22), else from a run on the head-room graph itself; held
+    bitwise against a cold stacked run on a topology built anew and
+    against the single shard's cold result.  The combine counts are set to
+    0 just before the rerun and read just after; the combine calls of the
+    first warm superstep are then held on their own inputs.  Then the compaction
+    fallback on a small graph built here (R-MAT scale 16, hash partition,
+    tight pads).  Returns the record."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.agent_graph import build_agent_graph
+    from repro_torch.core.dist_engine import DistGREEngine, original_order
+    from repro_torch.graph.generators import rmat_edges
+    from repro_torch.kernels import segment_combine as sc
+    t_phase = time.perf_counter()
+    ag, topos, _ = inputs["directed"]
+    slack = inputs["slack"]
+    eng = DistGREEngine(algorithms.sssp_program(), ag.k, exchange="agent")
+    shared = slack.cap == ag.cap and np.array_equal(slack.old2new,
+                                                    ag.old2new)
+    if shared:   # the same master rows: the step-3b graph's fixed point
+        prev = eng.make_run(ag, 10_000)(topos["sync"],
+                                        eng.init_state(ag, source=source))
+    else:
+        _, prev = eng.run(slack, source=source, max_steps=10_000)
+    sc.reset_launches()
+    new_ag, warm, out, report = eng.rerun_incremental(
+        slack, prev, delta, source=source, max_steps=10_000)
     torch.cuda.synchronize()
-    log(f"dist_calls_held={held} max_abs_err={json.dumps(errs)}")
-    return errs
+    launches = dict(sc.LAUNCHES)
+    stages = dict(eng.last_rerun_s)
+    if report.compacted:
+        raise AssertionError("the 1% delta overflowed the slack pads")
+    t0 = time.perf_counter()
+    topo = eng.device_topology(new_ag)
+    torch.cuda.synchronize()
+    topo_s = time.perf_counter() - t0
+    # the combine calls of the first warm superstep, held on their inputs
+    warm0 = eng.warm_start_state(new_ag, prev, report, source=source)
+    held = hold_block("dist incremental warm superstep 1",
+                      lambda: eng.make_run(new_ag, 1)(topo, warm0))
+    if not held:
+        raise AssertionError("dist incremental: no combine call held")
+    del warm0
+    cold_state, ms = timed(lambda: eng.make_run(new_ag, 10_000)(
+        topo, eng.init_state(new_ag, source=source)))
+    cold = original_order(new_ag, cold_state.vertex_data)
+    if not (np.array_equal(warm, cold) and np.array_equal(warm, sssp_cold)):
+        raise AssertionError("dist incremental: warm != cold")
+    if launches["dense"] <= 0:
+        raise AssertionError(f"dist incremental: no dense launch {launches}")
+    rec = {"program": "sssp", "exchange": "agent", "k": ag.k,
+           "pad_multiple_slack": SLACK_PAD, "prev_from_step_3b": shared,
+           "host_s": stages, "warm_supersteps": out.step,
+           "cold_supersteps": cold_state.step, "cold_wall_ms": ms,
+           "cold_topology_s": topo_s, "launches": launches,
+           "held": held,
+           "V_s_added": int(new_ag.num_scatter.sum()
+                            - slack.num_scatter.sum()),
+           "removed": report.num_removed, "added": report.num_adds}
+    del topo
+    # the compaction fallback, on a small graph: tight pads overflow
+    g = rmat_edges(16, 16, seed=1, weights=True).dedup()
+    small = build_agent_graph(g, "hash", ag.k)
+    sdelta = churn_delta(g, INC_CHURN, INC_SEED)
+    src = int(np.argmax(g.out_degree()))
+    _, sprev = eng.run(small, source=src, max_steps=10_000)
+    new_small, swarm, _, sreport = eng.rerun_incremental(
+        small, sprev, sdelta, source=src, max_steps=10_000)
+    scold, _ = eng.run(new_small, source=src, max_steps=10_000)
+    if not (sreport.compacted and np.array_equal(swarm, scold)
+            and np.array_equal(new_small.old2new, small.old2new)):
+        raise AssertionError("dist incremental: the compaction fallback "
+                             "failed its checks")
+    rec["compaction"] = {"scale": 16, "partition": "hash",
+                         "host_s": dict(eng.last_rerun_s),
+                         "e_pad": [small.e_pad, new_small.e_pad],
+                         "s_pad": [small.s_pad, new_small.s_pad]}
+    log("dist_incremental", json.dumps(rec))
+    log(f"dist_incremental_phase_s={time.perf_counter() - t_phase:.3f}")
+    return rec
+
+
+def dist_serving_phase(inputs, stream, old_bfs):
+    """The serving stream's BFS queries through an 8-lane BFS batcher on
+    the k = 8 stacked shards under agent (no delta; an untimed pass of the
+    first SERVE_WARMUP queries, then all of them), each answer held
+    bitwise against the fresh single-shard run of step 3d, with the
+    combine counts set to 0 just before and read just after.  First the
+    combine calls of one tick over SERVE_LANES queries are held on their
+    own inputs (`hold_block`), and the batcher drains."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.dist_engine import DistGREEngine
+    from repro_torch.core.frontier import HOST_READS as FRONTIER_READS
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.serving import GraphQueryBatcher, ServingFrontend
+    t_phase = time.perf_counter()
+    ag = inputs["directed"][0]
+    bfs = [x for x in stream if x[1] == "bfs"]
+
+    def frontend():
+        eng = DistGREEngine(algorithms.bfs_program(SERVE_LANES), ag.k,
+                            exchange="agent", frontier=SERVE_FRONTIER["bfs"])
+        return ServingFrontend({"bfs": GraphQueryBatcher(
+            eng, ag, steps_per_tick=SERVE_STEPS_PER_TICK)})
+
+    t0 = time.perf_counter()
+    fe = frontend()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = fe.batchers["bfs"]
+    # the combine calls of the first tick, held on their own inputs
+    for _, _, src in bfs[:SERVE_LANES]:
+        b.submit(src)
+    b.pump()
+    held = hold_block("dist serving bfs tick 1", b.tick)
+    fe.run()                                      # drain, untimed
+    drive_stream(fe, bfs[:SERVE_WARMUP])          # untimed pass
+    b.ticks = b.supersteps = b.host_reads = 0
+    sc.reset_launches()
+    FRONTIER_READS["frontier_counts"] = 0
+    queries, rounds, wall_s, _ = drive_stream(fe, bfs)
+    rec = serving_record("dist_bfs_agent", queries, rounds, wall_s, [b])
+    rec.update({"k": ag.k, "setup_s": setup_s,
+                "launches": dict(sc.LAUNCHES), "held": held})
+    for q in queries:
+        if q.status != "done" or not np.array_equal(q.result,
+                                                    old_bfs[q.source]):
+            raise AssertionError(f"dist serving: BFS source {q.source} "
+                                 "differs from the single shard")
+    if rec["launches"]["dense"] <= 0:
+        raise AssertionError(f"dist serving: no dense launch "
+                             f"{rec['launches']}")
+    rec["held_bitwise"] = len(queries)
+    log("dist_serving", json.dumps(rec))
+    log(f"dist_serving_phase_s={time.perf_counter() - t_phase:.3f}")
+    return rec
 
 
 # ------------------------------------------------------- attention phase
@@ -1358,13 +2026,22 @@ def run_phases(args, ingress) -> int:
             raise AssertionError(f"the {route} route launched no kernel")
     check_lanes(part, sources, multi, single0)
     log("main_path", json.dumps(runs))
+    del multi, single0
+    torch.cuda.empty_cache()
+    # incremental re-convergence and graph serving on the single shard
+    _, delta, sssp_cold = incremental_phase(graph, ugraph, part, upart,
+                                            source)
+    _, stream, old_bfs = graph_serving_phase(graph, part)
     # the distributed phase: the single-shard partitions go first
-    del part, upart, multi, single0
+    del part, upart
     torch.cuda.empty_cache()
     single_steps = {r["program"]: r["supersteps"] for r in runs}
     inputs = dist_inputs(ingress)
-    _, _, dist_errs = dist_phase(inputs, ref, source, single_steps)
-    del graph, ugraph, ref, inputs
+    dist_phase(inputs, ref, source, single_steps)
+    dist_incremental_phase(inputs, delta, source, sssp_cold)
+    dist_serving_phase(inputs, stream, old_bfs)
+    log(f"held_max_abs_err={json.dumps(HELD_ERRS)}")
+    del graph, ugraph, ref, inputs, old_bfs, sssp_cold
     torch.cuda.empty_cache()
 
     attn = attention_kernel_phase(args.reps)
@@ -1382,7 +2059,7 @@ def run_phases(args, ingress) -> int:
             "launches": launches[route],
             "max_abs_err": max([r["max_abs_err"] for r in records
                                 if r["route"] == route]
-                               + [dist_errs.get(route, 0.0)]),
+                               + [HELD_ERRS.get(route, 0.0)]),
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": "bytes",
             "library_ms": rec["library_ms"]})

@@ -23,8 +23,8 @@ distributed engine (`repro_torch.core.dist_engine`) lays the k shards end
 to end in one slot space on the device.
 
 The port's copy of `repro.core.agent_graph`: every field of the host-side
-build is byte-identical to the JAX package's for the same inputs.  The
-delta ingress (`apply_edge_delta`) comes with the incremental slice.
+build and of the delta ingress (`apply_edge_delta`) is byte-identical to
+the JAX package's for the same inputs.
 """
 from __future__ import annotations
 
@@ -35,7 +35,10 @@ import numpy as np
 
 from repro_torch.core.partition import (accumulate_owner_counts,
                                         owners_from_counts, rebalance_owners)
-from repro_torch.graph.structures import csr_layout, degree_buckets
+from repro_torch.graph.structures import (DeltaReport, Graph, csr_layout,
+                                          degree_buckets, merge_order,
+                                          removal_selector,
+                                          validate_edge_delta)
 
 
 @dataclasses.dataclass
@@ -257,6 +260,245 @@ def slot_to_original(ag: AgentGraph) -> np.ndarray:
             g = j * cap + ag.comb_recv_master[j, i][t]
             out[i, slots[t]] = ag.new2old[g]
     return out
+
+
+def _ranks_within(groups: np.ndarray) -> np.ndarray:
+    """Each entry's rank among the entries of its group, in array order."""
+    order = np.argsort(groups, kind="stable")
+    gs = groups[order]
+    starts = np.flatnonzero(np.r_[True, gs[1:] != gs[:-1]])
+    lens = np.diff(np.r_[starts, gs.shape[0]])
+    ranks = np.empty(groups.shape[0], dtype=np.int64)
+    ranks[order] = np.arange(gs.shape[0]) - np.repeat(starts, lens)
+    return ranks
+
+
+def apply_edge_delta(ag: AgentGraph, delta, pad_multiple: int = 8):
+    """Delta ingress on a built AgentGraph: retire and append edges WITHOUT
+    repartitioning.  Master placement (`old2new`), `cap` and every live
+    slot's meaning are kept, so a warm-started state stays valid on the
+    mutated topology.
+
+    Fast path (slack-consuming, no shape change):
+
+      * removals tombstone in place: `edge_mask` goes False and the edge
+        is repointed at the sink;
+      * adds land on `owner(dst)` (the destination is always a local
+        master there, so every real dst stays a master or a combiner, as
+        `split_edge_tiles` needs), reusing an existing scatter agent for a
+        remote src or taking a fresh one from the `s_pad` slack, with its
+        exchange pair appended at the next free position of its peer row;
+      * each partition's live edges re-sort by destination slot and the
+        CSR/bucket indices rebuild; the static facets merge monotonically
+        (elementwise max).
+
+    When any pad would overflow (`e_pad` edges, `s_pad` agents, `s_x_pad`
+    exchange slots) the graph COMPACTS instead: it is rebuilt from the
+    recovered edge set through `build_agent_graph` with the SAME owner
+    vector, so `old2new` is unchanged and only the pads regrow; the report
+    says so.
+
+    Returns ``(new_ag, DeltaReport)``; `ag` is not changed.  Byte-identical
+    to the JAX package's; the agent allocation, which the JAX package
+    makes one add row at a time, is vectorised here in the same order
+    (first appearance in the delta).
+    """
+    V, k, cap, sink = ag.num_vertices, ag.k, ag.cap, ag.sink
+    s2o = slot_to_original(ag)
+    # ---- validate up front, against the ORIGINAL-id live edge set, with
+    # the same rules (and messages) as the single-shard path
+    o_s = [s2o[i][ag.src[i]] for i in range(k)]
+    o_d = [s2o[i][ag.dst[i]] for i in range(k)]
+    # masked rows read -1 (negative key) and can never match
+    keys = np.concatenate([o_s[i] * np.int64(V) + o_d[i] for i in range(k)])
+    rem_all = validate_edge_delta(delta, V, live_keys=keys)
+    if delta.num_adds:
+        for name in ag.edge_props:
+            if name not in delta.add_props:
+                raise KeyError(f"delta adds missing edge prop {name!r}")
+    owner = (ag.old2new // cap).astype(np.int64)
+
+    # ---- removals: match (src, dst) pairs in original-id space
+    rem = rem_all.reshape(k, -1) & ag.edge_mask
+    keep = ag.edge_mask & ~rem
+    removed_src = np.concatenate([o_s[i][rem[i]] for i in range(k)])
+    removed_dst = np.concatenate([o_d[i][rem[i]] for i in range(k)])
+
+    # ---- stage adds on owner(dst); allocate scatter agents as needed
+    u, v = delta.add_src, delta.add_dst
+    i_of = owner[v]
+    j_of = owner[u]
+    d_loc = ag.old2new[v] - i_of * cap
+    s_loc = ag.old2new[u] - j_of * cap          # right where j == i
+    remote = np.flatnonzero(j_of != i_of)
+    num_scatter = ag.num_scatter.copy()
+    scat_used = (ag.scat_recv_slot != sink).sum(axis=2)      # [i, j]
+    overflow = False
+    scat_appends = None
+    if remote.size:
+        # existing scatter agents of each partition, keyed (i, original)
+        rows = [np.arange(cap, cap + int(ag.num_scatter[i]))
+                for i in range(k)]
+        akeys = np.concatenate([i * np.int64(V) + s2o[i][r]
+                                for i, r in enumerate(rows)])
+        aslot = np.concatenate(rows)
+        order = np.argsort(akeys, kind="stable")
+        akeys, aslot = akeys[order], aslot[order]
+        want = i_of[remote] * np.int64(V) + u[remote]
+        found = np.zeros(want.shape[0], dtype=bool)
+        if akeys.size:
+            pos = np.minimum(np.searchsorted(akeys, want), akeys.size - 1)
+            found = akeys[pos] == want
+            s_loc[remote[found]] = aslot[pos[found]]
+        fresh = remote[~found]
+        if fresh.size:
+            # one new agent per distinct (i, u), in order of first
+            # appearance in the delta: its slot by rank among partition
+            # i's new agents, its exchange position by rank among (i, j)'s
+            _, first, inv = np.unique(want[~found], return_index=True,
+                                      return_inverse=True)
+            by_first = np.argsort(first, kind="stable")
+            rows_new = fresh[first[by_first]]
+            fi, fj = i_of[rows_new], j_of[rows_new]
+            new_i = np.bincount(fi, minlength=k)
+            new_ij = np.bincount(fi * k + fj, minlength=k * k).reshape(k, k)
+            if (np.any(num_scatter + new_i > ag.s_pad)
+                    or np.any(scat_used + new_ij > ag.s_x_pad)):
+                overflow = True
+            else:
+                slot = cap + num_scatter[fi] + _ranks_within(fi)
+                scat_appends = (fi, fj, slot,
+                                ag.old2new[u[rows_new]] - fj * cap,
+                                scat_used[fi, fj] + _ranks_within(fi * k
+                                                                  + fj))
+                slot_of = np.empty(first.shape[0], dtype=np.int64)
+                slot_of[by_first] = slot
+                s_loc[fresh] = slot_of[inv.reshape(-1)]
+                num_scatter += new_i
+    if not overflow:
+        adds_per = np.bincount(i_of, minlength=k)
+        overflow = bool(np.any(keep.sum(axis=1) + adds_per > ag.e_pad))
+    if overflow:
+        return _rebuild_with_delta(ag, delta, pad_multiple)
+
+    # ---- commit: tombstone + append + per-partition dst re-sort
+    src = np.full_like(ag.src, sink)
+    dst = np.full_like(ag.dst, sink)
+    edge_mask = np.zeros_like(ag.edge_mask)
+    eprops = {name: np.zeros_like(val) for name, val in ag.edge_props.items()}
+    num_edges = np.zeros(k, dtype=np.int64)
+    num_slots = ag.num_slots
+    csr_indptr = np.zeros_like(ag.csr_indptr)
+    csr_eidx = np.zeros_like(ag.csr_eidx)
+    csr_max_deg = ag.csr_max_deg          # monotone: max with old statics
+    bucket_id = np.full_like(ag.bucket_id, -1)
+    bucket_sizes, bucket_max_deg = (), ()
+    add_order = np.argsort(i_of, kind="stable")
+    add_starts = np.r_[0, np.cumsum(np.bincount(i_of, minlength=k))]
+    for i in range(k):
+        ksel = np.flatnonzero(keep[i])
+        tsel = add_order[add_starts[i]:add_starts[i + 1]]
+        s_all = np.concatenate([ag.src[i][ksel],
+                                s_loc[tsel].astype(np.int32)])
+        d_all = np.concatenate([ag.dst[i][ksel],
+                                d_loc[tsel].astype(np.int32)])
+        props = {name: np.concatenate(
+                     [val[i][ksel],
+                      np.asarray(delta.add_props[name], val.dtype)[tsel]
+                      if tsel.size else val[i][:0]])
+                 for name, val in ag.edge_props.items()}
+        eorder = merge_order(d_all[:ksel.shape[0]], d_all[ksel.shape[0]:])
+        n_e = int(s_all.shape[0])
+        num_edges[i] = n_e
+        src[i, :n_e] = s_all[eorder]
+        dst[i, :n_e] = d_all[eorder]
+        edge_mask[i, :n_e] = True
+        for name, val in props.items():
+            eprops[name][i, :n_e] = val[eorder]
+        csr_indptr[i], csr_eidx[i], deg = csr_layout(src[i], edge_mask[i],
+                                                     num_slots)
+        csr_max_deg = max(csr_max_deg, deg)
+        bucket_id[i], sizes, max_degs = degree_buckets(csr_indptr[i],
+                                                       num_slots)
+        bucket_sizes = _merge_bucket_stats(bucket_sizes, sizes)
+        bucket_max_deg = _merge_bucket_stats(bucket_max_deg, max_degs)
+    bucket_sizes = _merge_bucket_stats(bucket_sizes, ag.bucket_sizes)
+    bucket_max_deg = _merge_bucket_stats(bucket_max_deg, ag.bucket_max_deg)
+
+    scat_recv = ag.scat_recv_slot.copy()
+    scat_send = ag.scat_send_master.copy()
+    if scat_appends is not None:
+        fi, fj, slot, master_loc, pos = scat_appends
+        scat_recv[fi, fj, pos] = slot
+        scat_send[fj, fi, pos] = master_loc
+
+    # global out-degree aux: adjust masters by the delta's degree change
+    d_out = (np.bincount(delta.add_src, minlength=V)
+             - np.bincount(removed_src, minlength=V)).astype(np.float32)
+    out_degree = ag.out_degree.copy()
+    for i in range(k):
+        own_old = ag.new2old[i * cap:(i + 1) * cap]
+        valid = own_old >= 0
+        out_degree[i, valid] += d_out[own_old[valid]]
+
+    new_ag = dataclasses.replace(
+        ag, src=src, dst=dst, edge_mask=edge_mask, edge_props=eprops,
+        out_degree=out_degree, scat_recv_slot=scat_recv,
+        scat_send_master=scat_send, num_scatter=num_scatter,
+        num_edges=num_edges, csr_indptr=csr_indptr, csr_eidx=csr_eidx,
+        csr_max_deg=csr_max_deg, bucket_id=bucket_id,
+        bucket_sizes=bucket_sizes, bucket_max_deg=bucket_max_deg)
+    report = DeltaReport(added_src=delta.add_src.copy(),
+                         added_dst=delta.add_dst.copy(),
+                         removed_src=removed_src, removed_dst=removed_dst,
+                         compacted=False)
+    return new_ag, report
+
+
+def _rebuild_with_delta(ag: AgentGraph, delta, pad_multiple: int):
+    """Slack exhausted: recover the live edge set (original ids and their
+    partition), apply the delta at the COO level and rebuild through
+    `build_agent_graph` with the same owner vector: master placement and
+    `old2new` are kept, only the agent and edge pads regrow."""
+    V, k, cap = ag.num_vertices, ag.k, ag.cap
+    s2o = slot_to_original(ag)
+    srcs, dsts, parts = [], [], []
+    props = {name: [] for name in ag.edge_props}
+    removed_src, removed_dst = [], []
+    for i in range(k):
+        m = ag.edge_mask[i]
+        o_s = s2o[i][ag.src[i]][m]
+        o_d = s2o[i][ag.dst[i]][m]
+        rem = removal_selector(o_s, o_d, delta.rem_src, delta.rem_dst, V)
+        srcs.append(o_s[~rem])
+        dsts.append(o_d[~rem])
+        parts.append(np.full(int((~rem).sum()), i, np.int64))
+        removed_src.append(o_s[rem])
+        removed_dst.append(o_d[rem])
+        for name, val in ag.edge_props.items():
+            props[name].append(val[i][m][~rem])
+    owner = (ag.old2new // cap).astype(np.int64)
+    srcs.append(delta.add_src)
+    dsts.append(delta.add_dst)
+    parts.append(owner[delta.add_dst])
+    for name in props:
+        col = (np.asarray(delta.add_props[name],
+                          ag.edge_props[name].dtype)
+               if delta.num_adds else props[name][0][:0])
+        props[name].append(col)
+    graph = Graph(V, np.concatenate(srcs), np.concatenate(dsts),
+                  {name: np.concatenate(val) for name, val in props.items()})
+    new_ag = build_agent_graph(graph, np.concatenate(parts), k,
+                               owner=owner, pad_multiple=pad_multiple,
+                               partitioner=ag.partitioner)
+    if not np.array_equal(new_ag.old2new, ag.old2new):
+        raise AssertionError("compaction must preserve master placement")
+    report = DeltaReport(added_src=delta.add_src.copy(),
+                         added_dst=delta.add_dst.copy(),
+                         removed_src=np.concatenate(removed_src),
+                         removed_dst=np.concatenate(removed_dst),
+                         compacted=True)
+    return new_ag, report
 
 
 def _bits_to_ids(row: np.ndarray) -> np.ndarray:

@@ -165,6 +165,72 @@ def bfs_program(num_sources: Optional[int] = None) -> VertexProgram:
     )
 
 
+def ppr_push_program(num_sources: int, alpha: float = 0.15,
+                     eps: float = 1e-4) -> VertexProgram:
+    """Personalized PageRank by monotone forward push (Andersen-Chung-Lang),
+    batched over D payload lanes: the third traversal family the serving
+    layer (`repro_torch.serving.graph_scheduler`) answers.
+
+    Per (vertex, lane) the state is an (estimate p, held residual r) pair:
+    `vertex_data` is `[n, D, 2]`.  A vertex whose total residual in lane d
+    exceeds `eps` PUSHES: p += α·r, and (1-α)·r/outdeg is scattered along
+    its out-edges (⊕ = sum accumulates incoming residual mass); sub-`eps`
+    residual is held until new mass arrives.  Active messages are the
+    pushes, so the frontier is exactly the above-threshold vertices and a
+    lane with no push anywhere has converged (`lane_activates`).
+
+    Seeding (`seed_sources`) performs the source's own first push at
+    admission: p[s] = α, scatter share (1-α)/outdeg(s) staged, so the next
+    superstep delivers it.  It writes the given tensors in place and
+    returns them.  Lanes evolve independently (pushes are decided per
+    lane), which is what makes lane recycling bitwise-safe for this
+    program despite the sum monoid, as long as the scan visits the edges
+    in a fixed order (the serving layer pins the dense frontier).
+    """
+    D = num_sources
+
+    def scatter_msg(src_scatter, _eprop):
+        return src_scatter  # scatter_data already holds (1-α)·r/outdeg
+
+    def combine_activates(_old_vd, combined):
+        return (combined > 0.0).any(dim=-1)  # received any mass
+
+    def apply_fn(vertex_data, combined, aux):
+        p_est, r_hold = vertex_data[..., 0], vertex_data[..., 1]
+        r_total = r_hold + combined
+        push = r_total > eps
+        new_p = p_est + torch.where(push, alpha * r_total, 0.0)
+        deg = torch.clamp(aux["out_degree"], min=1.0)[:, None]
+        new_sd = torch.where(push, (1.0 - alpha) * r_total / deg, 0.0)
+        new_r = torch.where(push, 0.0, r_total)
+        new_vd = torch.stack([new_p, new_r], dim=-1)
+        return new_vd, new_sd, push.any(dim=-1)
+
+    def lane_activates(vertex_data, combined):
+        return (vertex_data[..., 1] + combined) > eps  # a push will happen
+
+    def seed_sources(vd, sd, src, lanes, aux):
+        deg = torch.clamp(aux["out_degree"], min=1.0)
+        src = src.to(torch.int64)
+        lanes = lanes.to(torch.int64)
+        vd[src, lanes, 0] = alpha
+        vd[src, lanes, 1] = 0.0
+        sd[src, lanes] = (1.0 - alpha) / deg[src]
+        return vd, sd
+
+    return VertexProgram(
+        name=f"ppr_x{D}", monoid=MONOIDS["sum"],
+        scatter_msg=scatter_msg, apply_fn=apply_fn,
+        init_vertex_data=lambda n, aux: _full((n, D, 2), 0.0, aux),
+        init_scatter_data=lambda n, aux: _full((n, D), 0.0, aux),
+        init_active=lambda n, aux: _full((n,), False, aux, torch.bool),
+        combine_activates=combine_activates, halts=True,
+        payload_shape=(D,),
+        lane_activates=lane_activates, seed_sources=seed_sources,
+        lane_view=lambda vd, lane: vd[:, lane, 0],
+    )
+
+
 def degree_program() -> VertexProgram:
     """In-degree via one superstep of sum-combine (sanity workload)."""
 

@@ -29,8 +29,10 @@ sorted too and one row pointer built at ingress lets one combine-kernel
 launch ⊕ every shard at once.  The shard-axis collectives go through a
 communicator (`repro_torch.dist.comm.StackedComm`).  The frontier choice
 (dense or compacted, and the capacities) is made once for all shards over
-the stacked slot space, where the JAX package makes it per shard; for
-min/max programs both give the dense scan's result bitwise.
+the stacked slot space, where the JAX package makes it per shard; an
+explicit `frontier_cap` is each shard's, as there, so the stacked plan
+takes k times it.  For min/max programs both give the dense scan's result
+bitwise.
 
 Vertex state is flat over the stacked masters, `[k·cap, ...]` in relabeled
 global-id order, so `run` returns `vertex_data[old2new]`.
@@ -38,6 +40,7 @@ global-id order, so `run` returns `vertex_data[old2new]`.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -50,7 +53,7 @@ from repro_torch.core.exchange import (AgentExchange, AsyncAgentExchange,
                                        CombineRoute, DenseExchange,
                                        NullExchange, PipelinedAgentExchange,
                                        PipelineTiles, ShardTopology)
-from repro_torch.core.plan import execute_plan
+from repro_torch.core.plan import execute_plan, execute_superstep
 from repro_torch.core.vertex_program import VertexProgram
 from repro_torch.dist.comm import StackedComm
 from repro_torch.graph.structures import degree_buckets
@@ -146,8 +149,12 @@ class DistGREEngine:
         self.exchange = exchange
         self.overlap = overlap
         self.staleness = staleness
-        self.local = GREEngine(program, frontier=frontier,
-                               frontier_cap=frontier_cap)
+        # `frontier_cap` is a shard's capacity (as in the JAX package); the
+        # local engine resolves the frontier over all k stacked shards
+        self.frontier_cap = frontier_cap
+        self.local = GREEngine(
+            program, frontier=frontier,
+            frontier_cap=None if frontier_cap is None else k * frontier_cap)
 
     @property
     def plan(self):
@@ -353,6 +360,146 @@ class DistGREEngine:
             lane_active = torch.from_numpy(
                 np.broadcast_to(row, (k, D)).copy()).to(dev)
         return EngineState(vd, sd, act, 0, lane_active)
+
+    # ------------------------------------------------------------ incremental
+    def warm_start_state(self, ag: AgentGraph, prev_state: EngineState,
+                         report, source=None, lane_tracking: bool = False
+                         ) -> EngineState:
+        """Distributed warm start (see `GREEngine.warm_start_state`): the
+        invalidation and seeding passes run on the host in ORIGINAL vertex
+        order (`old2new` maps the stacked master rows out and back), so
+        the policy code (`repro_torch.core.incremental`) is the single
+        shard's.  `ag` is the MUTATED agent graph; `apply_edge_delta`
+        keeps master placement, so `prev_state`'s master rows line up even
+        when the pads regrew."""
+        from repro_torch.core import incremental
+        from repro_torch.core.agent_graph import slot_to_original
+        self._check(ag)
+        p = self.program
+        incremental.check_supported(p, report)
+        k, cap, V, ns = ag.k, ag.cap, ag.num_vertices, ag.num_slots
+        state0 = self.init_state(ag, source=source,
+                                 lane_tracking=lane_tracking)
+        payload = tuple(state0.scatter_data.shape[1:])
+        ns_prev = prev_state.scatter_data.shape[0] // k
+
+        def masters(sd, slots):   # stacked [k·slots, ...] -> [k·cap, ...]
+            return sd.reshape((k, slots) + payload)[:, :cap].reshape(
+                (k * cap,) + payload)
+
+        sd = state0.scatter_data.clone()
+        sd_view = sd.view((k, ns) + payload)
+        if not p.halts:
+            sd_view[:, :cap] = masters(prev_state.scatter_data,
+                                       ns_prev).reshape(
+                                           (k, cap) + payload)
+            return dataclasses.replace(state0,
+                                       vertex_data=prev_state.vertex_data,
+                                       scatter_data=sd)
+        o2n = ag.old2new
+        vd_prev = prev_state.vertex_data.cpu().numpy()[o2n]
+        sd_prev = masters(prev_state.scatter_data, ns_prev).cpu().numpy()[o2n]
+        s2o = slot_to_original(ag)
+        m = ag.edge_mask
+        lsrc = np.concatenate([s2o[i][ag.src[i]][m[i]] for i in range(k)])
+        ldst = np.concatenate([s2o[i][ag.dst[i]][m[i]] for i in range(k)])
+        eprop = (np.concatenate([ag.edge_props[p.needs_edge_prop][i][m[i]]
+                                 for i in range(k)])
+                 if p.needs_edge_prop else None)
+        protected = incremental.source_mask(vd_prev.shape, source)
+        tainted = incremental.compute_taint(p, V, lsrc, ldst, eprop,
+                                            vd_prev, report, protected)
+        vd0 = state0.vertex_data.cpu().numpy()
+        vd = np.where(tainted, vd0[o2n], vd_prev)
+        sd0 = masters(state0.scatter_data, ns).cpu().numpy()
+        sd_new = np.where(tainted, sd0[o2n], sd_prev)
+        tany = tainted if tainted.ndim == 1 else tainted.any(axis=-1)
+        aux_orig = {
+            "out_degree": torch.from_numpy(
+                ag.out_degree.reshape(k * cap)[o2n]),
+            "global_id": torch.arange(V, dtype=torch.float32)}
+        init_act = p.init_active(V, aux_orig).numpy()
+        act = incremental.warm_seed_active(V, lsrc, ldst, tany,
+                                           report.added_src, init_act)
+        # scatter the original-order columns back into the stacked layout
+        vd_st = vd0.copy()
+        vd_st[o2n] = vd
+        sd_st = sd0.copy()
+        sd_st[o2n] = sd_new
+        act_st = np.zeros(k * cap, dtype=bool)
+        act_st[o2n] = act
+        dev = self.device
+        sd_view[:, :cap] = torch.from_numpy(sd_st).to(dev).reshape(
+            (k, cap) + payload)
+        active = torch.zeros((k, ns), dtype=torch.bool, device=dev)
+        active[:, :cap] = torch.from_numpy(act_st).to(dev).reshape(k, cap)
+        return dataclasses.replace(
+            state0, vertex_data=torch.from_numpy(vd_st).to(dev),
+            scatter_data=sd, active_scatter=active.reshape(-1))
+
+    def rerun_incremental(self, ag: AgentGraph, prev_state: EngineState,
+                          delta, *, source=None, max_steps: int = 100):
+        """Apply an EdgeDelta to the agent graph and re-converge from
+        `prev_state`'s fixed point.  A delta appends exchange pairs, so
+        the stacked topology is rebuilt from the new agent graph.
+
+        Returns ``(new_ag, result_in_original_order, final_state,
+        report)``, bitwise-equal to a cold `run` on the mutated graph for
+        halting min-monoid programs.  `last_rerun_s` keeps the host
+        seconds of its stages (delta ingress, warm start, topology
+        rebuild, run)."""
+        from repro_torch.core.agent_graph import apply_edge_delta
+        t0 = time.perf_counter()
+        new_ag, report = apply_edge_delta(ag, delta)
+        t1 = time.perf_counter()
+        state = self.warm_start_state(new_ag, prev_state, report,
+                                      source=source)
+        t2 = time.perf_counter()
+        topo = self.device_topology(new_ag)
+        t3 = time.perf_counter()
+        out = self.make_run(new_ag, max_steps=max_steps)(topo, state)
+        result = original_order(new_ag, out.vertex_data)
+        t4 = time.perf_counter()
+        self.last_rerun_s = {"apply_edge_delta": t1 - t0,
+                             "warm_start_state": t2 - t1,
+                             "device_topology": t3 - t2, "run": t4 - t3}
+        return new_ag, result, out, report
+
+    # ------------------------------------------------------------------ tick
+    def make_superstep(self, ag: AgentGraph, steps_per_tick: int = 1):
+        """The SERVING TICK: `fn(topo, state)` runs `steps_per_tick`
+        supersteps over the stacked shards with NO convergence loop around
+        them; the serving layer (`repro_torch.serving.graph_scheduler`)
+        owns the loop, so it can retire and admit payload lanes between
+        ticks.
+
+        Each superstep merges within the tick (`plan.execute_superstep`):
+        a mailbox carried across ticks would hold partial combines of a
+        retired query.  The per-lane halt rows are OR-ed over the shards,
+        so every row of `lane_active` is the global verdict.
+        `exchange="async"` cannot serve ticks: its ring holds remote
+        partials for up to `staleness` supersteps, and dropping them at a
+        tick boundary would lose messages outright."""
+        if self.exchange == "async":
+            raise ValueError(
+                "exchange='async' cannot drive the serving tick: the "
+                "staleness ring carries un-flushed remote partials across "
+                "supersteps, and a per-tick merge would drop them. Use "
+                "exchange='agent' or 'pipelined' for serving.")
+        self._check(ag)
+
+        def tick(topo: ShardTopology, state: EngineState) -> EngineState:
+            backend = self.make_exchange(topo)
+            for _ in range(steps_per_tick):
+                state = execute_superstep(self.local, topo.part, state,
+                                          backend)
+            if state.lane_active is not None:
+                la = state.lane_active.any(dim=0, keepdim=True)
+                state = dataclasses.replace(
+                    state, lane_active=la.expand_as(
+                        state.lane_active).contiguous())
+            return state
+        return tick
 
     # ------------------------------------------------------------------- run
     def make_run(self, ag: AgentGraph, max_steps: int = 100):

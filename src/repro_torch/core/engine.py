@@ -33,9 +33,11 @@ import torch
 from repro_torch.core.exchange import NULL_EXCHANGE
 from repro_torch.core.plan import SuperstepPlan, execute_plan, execute_superstep
 from repro_torch.core.vertex_program import VertexProgram, segment_combine
-from repro_torch.graph.structures import (DEFAULT_BUCKET_BOUNDS, csr_layout,
-                                          degree_buckets, pad_edges,
-                                          sort_edges_by_dst)
+from repro_torch.graph.structures import (DEFAULT_BUCKET_BOUNDS,
+                                          DeltaReport, csr_layout,
+                                          degree_buckets, merge_order,
+                                          stable_argsort,
+                                          validate_edge_delta)
 from repro_torch.kernels.segment_combine import segment_row_pointer
 
 
@@ -111,26 +113,55 @@ class DevicePartition:
     def from_graph(graph, pad_to: Optional[int] = None,
                    sort_by_dst: bool = True, transpose: bool = False,
                    bucket_bounds: Optional[tuple] = None,
+                   edge_slack: int = 0, chunk_size: Optional[int] = None,
                    device="cuda") -> "DevicePartition":
         """Whole graph on one shard (slots = V + sink), built on the host
         and moved to `device`.
 
         `transpose=True` builds the partition of the reversed graph;
         `bucket_bounds` overrides the default degree-bucket ladder.
+        `edge_slack` pads the edge columns with that many extra masked
+        slots, so later `apply_edge_delta` batches append in place.
+
+        `graph` may also be an `EdgeChunkSource`; a `Graph` streams as
+        chunks of `chunk_size` rows (default: one chunk of the whole list).
+        The padded columns fill from the chunk stream at a cursor and the
+        dst sort runs over the filled prefix, so every `chunk_size` gives
+        bitwise the same columns with no second copy of the edge list.
+        The host build's two stable sorts (by dst, by src) run on `device`.
         """
         dev = resolve_device(device)
-        if transpose:
-            graph = graph.reversed()
-        src, dst, props = graph.src, graph.dst, dict(graph.edge_props)
+        source = graph if hasattr(graph, "chunks") else graph.chunk_source(
+            chunk_size or max(graph.num_edges, 1))
+        v, e = source.num_vertices, source.num_edges
+        e_pad = pad_to or (e + edge_slack)
+        assert e_pad >= e, (e_pad, e)
+        psrc = np.full(e_pad, v, dtype=np.int32)
+        pdst = np.full(e_pad, v, dtype=np.int32)
+        mask = np.zeros(e_pad, dtype=bool)
+        mask[:e] = True
+        props = {k: np.zeros(e_pad, dtype=dt)
+                 for k, dt in source.prop_dtypes.items()}
+        out_deg = np.zeros(v, dtype=np.int64)
+        cur = 0
+        for chunk in source.chunks():
+            s, d = ((chunk.dst, chunk.src) if transpose
+                    else (chunk.src, chunk.dst))
+            hi = cur + chunk.num_edges
+            psrc[cur:hi] = s
+            pdst[cur:hi] = d
+            for k in props:
+                props[k][cur:hi] = chunk.props[k]
+            out_deg += np.bincount(s, minlength=v)
+            cur = hi
         if sort_by_dst:
-            src, dst, props, _ = sort_edges_by_dst(src, dst, props)
-        v = graph.num_vertices
-        e_pad = pad_to or graph.num_edges
-        psrc, pdst, mask = pad_edges(src, dst, e_pad, pad_vertex=v)
-        props = {k: np.pad(p, (0, e_pad - graph.num_edges))
-                 for k, p in props.items()}
-        out_deg = graph.out_degree().astype(np.float32)
-        indptr, eidx, max_deg = csr_layout(psrc, mask, v + 1)
+            order = stable_argsort(pdst[:e], dev)
+            psrc[:e] = psrc[:e][order]
+            pdst[:e] = pdst[:e][order]
+            for k in props:
+                props[k][:e] = props[k][:e][order]
+        out_deg = out_deg.astype(np.float32)
+        indptr, eidx, max_deg = csr_layout(psrc, mask, v + 1, dev)
         bucket_id, sizes, max_degs = degree_buckets(
             indptr, v + 1, bounds=tuple(bucket_bounds or
                                         DEFAULT_BUCKET_BOUNDS))
@@ -145,6 +176,122 @@ class DevicePartition:
                    "csr_max_deg": max_deg, "bucket_sizes": sizes,
                    "bucket_max_deg": max_degs}
         return DevicePartition.from_arrays(arrays, statics, device=dev)
+
+    def apply_edge_delta(self, delta, bucket_bounds: Optional[tuple] = None,
+                         pad_multiple: int = 8):
+        """Delta ingress: retire and append edges in the padded columns
+        without rebuilding the partition from a `Graph`.
+
+        Removed edges become TOMBSTONES: `edge_mask` False and both ends
+        repointed at the sink slot, so even the unmasked dense scan never
+        re-delivers them (the sink's segment of the row pointer counts
+        them).  Added edges take masked slack slots at the tail.  Live
+        edges are then re-sorted by destination on the host, and the CSR,
+        the degree buckets and the row pointer rebuilt over the same
+        padded length.
+
+        The static facets (`csr_max_deg`, `bucket_sizes`,
+        `bucket_max_deg`) merge monotonically (elementwise max with this
+        partition's), as in the JAX package, where that keeps one jitted
+        trace across deltas; here it keeps the frontier plan after a
+        delta equal to the JAX package's.  When the live edges outgrow the
+        padded columns the partition COMPACTS: the edge length regrows
+        with x1.25 head-room, rounded up to `pad_multiple`, and the report
+        says so.
+
+        Returns ``(new_partition, DeltaReport)``; `self` is not changed.
+        The host work matches the JAX package's field by field; its
+        removal matching and sorts take the faster formulations of
+        `graph.structures` (`validate_edge_delta`'s hashed match,
+        `merge_order`, and `stable_argsort` on the partition's device).
+        """
+        assert self.src is not None, \
+            "tile-only partition carries no edge columns to mutate"
+        n, slots = self.num_masters, self.num_slots
+        sink = n  # single-shard layout: masters [0, n), sink at n
+        src = self.src.cpu().numpy()
+        dst = self.dst.cpu().numpy()
+        mask = self.edge_mask.cpu().numpy()
+        props = {k: v.cpu().numpy() for k, v in self.edge_props.items()}
+        # ---- validate up front (single-shard layout: master slot == the
+        # original vertex id, so slot-space keys are original-id keys) and
+        # retire every live instance of each removed (src, dst) pair
+        live = np.flatnonzero(mask)
+        sel = validate_edge_delta(
+            delta, n, src[live].astype(np.int64) * np.int64(n) + dst[live])
+        rem = np.zeros(mask.shape[0], dtype=bool)
+        rem[live[sel]] = True
+        removed_src = src[rem].astype(np.int64)
+        removed_dst = dst[rem].astype(np.int64)
+        keep = mask & ~rem
+        # ---- stage adds
+        if delta.num_adds:
+            for k in props:
+                if k not in delta.add_props:
+                    raise KeyError(f"delta adds missing edge prop {k!r}")
+        live_src = np.concatenate([src[keep],
+                                   delta.add_src.astype(np.int32)])
+        live_dst = np.concatenate([dst[keep],
+                                   delta.add_dst.astype(np.int32)])
+        live_props = {
+            k: np.concatenate([v[keep],
+                               np.asarray(delta.add_props[k], v.dtype)
+                               if delta.num_adds else v[:0]])
+            for k, v in props.items()}
+        e_live = int(live_src.shape[0])
+        e_pad = int(src.shape[0])
+        compacted = False
+        if e_live > e_pad:  # slack exhausted: the partition regrows
+            e_pad = max(e_live, int(e_pad * 1.25))
+            e_pad = -(-e_pad // pad_multiple) * pad_multiple
+            compacted = True
+        if self.edges_sorted_by_dst:
+            # the kept edges are still dst-sorted: merge the adds in (the
+            # permutation of a stable sort by dst)
+            order = merge_order(live_dst[:e_live - delta.num_adds],
+                                live_dst[e_live - delta.num_adds:])
+            live_src, live_dst = live_src[order], live_dst[order]
+            live_props = {k: v[order] for k, v in live_props.items()}
+        psrc = np.full(e_pad, sink, np.int32)
+        pdst = np.full(e_pad, sink, np.int32)
+        pmask = np.zeros(e_pad, dtype=bool)
+        psrc[:e_live] = live_src
+        pdst[:e_live] = live_dst
+        pmask[:e_live] = True
+        pprops = {}
+        for k, v in live_props.items():
+            col = np.zeros((e_pad,) + v.shape[1:], dtype=v.dtype)
+            col[:e_live] = v
+            pprops[k] = col
+        indptr, eidx, max_deg = csr_layout(psrc, pmask, slots, self.device)
+        bucket_id, sizes, max_degs = degree_buckets(
+            indptr, slots,
+            bounds=tuple(bucket_bounds or DEFAULT_BUCKET_BOUNDS))
+        # monotone static merge (see docstring)
+        max_deg = max(max_deg, self.csr_max_deg)
+        if len(sizes) == len(self.bucket_sizes):
+            sizes = tuple(max(a, b)
+                          for a, b in zip(sizes, self.bucket_sizes))
+            max_degs = tuple(max(a, b)
+                             for a, b in zip(max_degs, self.bucket_max_deg))
+        aux = {k: v.cpu().numpy() for k, v in self.aux.items()}
+        aux["out_degree"] = np.bincount(
+            live_src, minlength=slots)[:n].astype(np.float32)
+        new = DevicePartition.from_arrays(
+            {"src": psrc, "dst": pdst, "edge_mask": pmask,
+             "edge_props": pprops, "aux": aux, "csr_indptr": indptr,
+             "csr_eidx": eidx, "bucket_id": bucket_id},
+            {"num_masters": n, "num_slots": slots,
+             "edges_sorted_by_dst": self.edges_sorted_by_dst,
+             "csr_max_deg": max_deg, "bucket_sizes": sizes,
+             "bucket_max_deg": max_degs, "shards": self.shards},
+            device=self.device)
+        report = DeltaReport(added_src=delta.add_src.copy(),
+                             added_dst=delta.add_dst.copy(),
+                             removed_src=removed_src,
+                             removed_dst=removed_dst,
+                             compacted=compacted)
+        return new, report
 
     @staticmethod
     def from_arrays(arrays: Dict[str, object], statics: Dict[str, object],
@@ -349,6 +496,83 @@ class GREEngine:
                              "`source` and a program with `lane_activates` "
                              "(payload_shape=(D,))")
         return EngineState(vertex_data, scatter_data, active, 0, lane_active)
+
+    # ------------------------------------------------------------ incremental
+    def warm_start_state(self, part: DevicePartition, prev_state: EngineState,
+                         report, source=None, lane_tracking: bool = False
+                         ) -> EngineState:
+        """Seed a re-convergence run on the MUTATED partition from the
+        previous fixed point (`repro_torch.core.incremental`).
+
+        Iterative programs (PageRank) carry the previous values forward
+        under fresh init activity: the contraction resumes from a nearby
+        point.  Halting min-monoid traversals get the exact treatment:
+        entries no longer certified by the surviving edges are reset to
+        their initial values (the program's `invalidation` policy), and
+        only add-endpoints, in-neighbors of resets and self-seeding resets
+        start active.  An empty delta yields an empty frontier: the run
+        ends at once at the previous fixed point.  The passes run on the
+        host; the state goes back to the partition's device.
+        """
+        from repro_torch.core import incremental
+        p = self.program
+        incremental.check_supported(p, report)
+        n = part.num_masters
+        state0 = self.init_state(part, source=source,
+                                 lane_tracking=lane_tracking)
+        sd = state0.scatter_data.clone()
+        if not p.halts:
+            sd[:n] = prev_state.scatter_data[:n]
+            return dataclasses.replace(state0,
+                                       vertex_data=prev_state.vertex_data,
+                                       scatter_data=sd)
+        vd_prev = prev_state.vertex_data.cpu().numpy()
+        sd_prev = prev_state.scatter_data[:n].cpu().numpy()
+        mask = part.edge_mask.cpu().numpy()
+        lsrc = part.src.cpu().numpy()[mask].astype(np.int64)
+        ldst = part.dst.cpu().numpy()[mask].astype(np.int64)
+        eprop = None
+        if p.needs_edge_prop:
+            eprop = part.edge_props[p.needs_edge_prop].cpu().numpy()[mask]
+        protected = incremental.source_mask(vd_prev.shape, source)
+        tainted = incremental.compute_taint(p, n, lsrc, ldst, eprop,
+                                            vd_prev, report, protected)
+        vd = np.where(tainted, state0.vertex_data.cpu().numpy(), vd_prev)
+        sd_new = np.where(tainted, state0.scatter_data[:n].cpu().numpy(),
+                          sd_prev)
+        tany = tainted if tainted.ndim == 1 else tainted.any(axis=-1)
+        init_act = p.init_active(n, part.aux).cpu().numpy()
+        act = incremental.warm_seed_active(n, lsrc, ldst, tany,
+                                           report.added_src, init_act)
+        dev = part.device
+        sd[:n] = torch.from_numpy(sd_new.astype(np.float32)).to(dev).to(
+            p.msg_dtype)
+        active = torch.zeros(part.num_slots, dtype=torch.bool, device=dev)
+        active[:n] = torch.from_numpy(act).to(dev)
+        return dataclasses.replace(
+            state0,
+            vertex_data=torch.from_numpy(vd.astype(vd_prev.dtype)).to(dev),
+            scatter_data=sd, active_scatter=active)
+
+    def rerun_incremental(self, part: DevicePartition, prev_state: EngineState,
+                          delta, *, source=None, max_steps: int = 100,
+                          lane_tracking: bool = False):
+        """Apply an EdgeDelta and re-converge from `prev_state`'s fixed
+        point through the unchanged plan executor.
+
+        Returns ``(new_partition, final_state, report)``.  The final state
+        is bitwise-equal to a cold `run` on the mutated graph for halting
+        min-monoid programs; iterative programs re-converge to the
+        tolerance they always carry.  Supersteps and edge scans follow the
+        perturbation, not the graph.  (The JAX package also re-keys a
+        tuned plan here, `refresh_plan`; the port has no tuned plans yet.)
+        """
+        new_part, report = part.apply_edge_delta(delta)
+        state = self.warm_start_state(new_part, prev_state, report,
+                                      source=source,
+                                      lane_tracking=lane_tracking)
+        out = self.run(new_part, state, max_steps)
+        return new_part, out, report
 
     # ------------------------------------------------------- scatter-combine
     def scatter_combine(self, part: DevicePartition, state: EngineState,

@@ -44,6 +44,10 @@ if TYPE_CHECKING:  # pragma: no cover - typing only, avoids a cycle
     from repro_torch.core.plan import FrontierPlan
     from repro_torch.core.vertex_program import VertexProgram
 
+# Host reads of the frontier (one `frontier_counts` transfer each); reset by
+# callers that count a run.
+HOST_READS = {"frontier_counts": 0}
+
 # Density threshold for auto strategy selection: compact below ~6% active.
 FRONTIER_DENSITY = 1.0 / 16.0
 
@@ -150,14 +154,17 @@ def compact_scatter_combine(program: "VertexProgram", part: "DevicePartition",
     (bitwise for min/max; sums up to float reorder).  Callers guard
     `|frontier| <= cap`.  `live_edges`, the live slots' out-edge total
     (`frontier_counts`), is then the tile's count of lanes routed to a
-    segment whenever the segment space holds every slot, and is passed on
-    to the tile route.
+    segment, and is passed on to the tile route: every real edge's dst
+    lies inside `num_segments`, in the slot space and in the pipelined
+    split tiles' compact spaces alike (`agent_graph.split_edge_tiles`
+    relabels a shard's real edges into `[0, c_pad)` or `[0, cap)` of its
+    `c_pad + 1` or `cap + 1` block).  A count that disagrees raises on the
+    CPU and traps on the card.
     """
     msgs, dst = frontier_tile(program, part, state, num_segments, cap,
                               max_deg, frontier_mask)
-    valid = live_edges if num_segments >= part.num_slots else None
     return kernel_ops.tile_segment_combine(msgs, dst, num_segments,
-                                           program.monoid.name, valid)
+                                           program.monoid.name, live_edges)
 
 
 def dense_masked_combine(program: "VertexProgram", part: "DevicePartition",
@@ -207,6 +214,7 @@ def frontier_counts(part: "DevicePartition",
             cols.append(torch.bincount(key, weights=w.to(torch.float64),
                                        minlength=nb + 1)[1:].to(torch.int64))
     vals = torch.cat(cols).tolist()
+    HOST_READS["frontier_counts"] += 1
     return FrontierCounts(vals[0], vals[1], tuple(vals[2:2 + nb]),
                           tuple(vals[2 + nb:]))
 

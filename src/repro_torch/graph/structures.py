@@ -55,6 +55,30 @@ class Graph:
         props = {k: np.concatenate([v, v]) for k, v in self.edge_props.items()}
         return Graph(self.num_vertices, src, dst, props, dict(self.vertex_props))
 
+    def apply_edge_delta(self, delta: "EdgeDelta") -> "Graph":
+        """The COO-level mutation (host-side reference semantics): retire
+        every live instance of each removed pair, then append the added
+        edges.  The partition-level deltas
+        (`repro_torch.core.engine.DevicePartition.apply_edge_delta`,
+        `repro_torch.core.agent_graph.apply_edge_delta`) agree with
+        rebuilding from this graph."""
+        keep = ~validate_edge_delta(
+            delta, self.num_vertices,
+            live_keys=(self.src.astype(np.int64) *
+                       np.int64(self.num_vertices) +
+                       self.dst.astype(np.int64)))
+        for k in self.edge_props:
+            if k not in delta.add_props and delta.num_adds:
+                raise KeyError(f"delta adds missing edge prop {k!r}")
+        src = np.concatenate([self.src[keep], delta.add_src])
+        dst = np.concatenate([self.dst[keep], delta.add_dst])
+        props = {k: np.concatenate([v[keep],
+                                    np.asarray(delta.add_props[k], v.dtype)
+                                    if delta.num_adds else v[:0]])
+                 for k, v in self.edge_props.items()}
+        return Graph(self.num_vertices, src, dst, props,
+                     dict(self.vertex_props))
+
     def iter_edge_chunks(self, chunk_size: int):
         """Yield the edge stream as `EdgeChunk` slices of at most
         `chunk_size` rows, in stream order (the chunk-source protocol's
@@ -127,6 +151,200 @@ def as_chunk_source(graph_or_source, chunk_size: int = 1 << 18):
     return graph_or_source.chunk_source(chunk_size)
 
 
+@dataclasses.dataclass
+class EdgeDelta:
+    """A batch of edge mutations in ORIGINAL vertex ids.
+
+    `removes` retire every live instance of each (src, dst) pair; a pair
+    matching no live edge is rejected up front (`validate_edge_delta`), as
+    are out-of-range ids and within-batch duplicate add rows.  `adds`
+    append otherwise unconditionally (multi-edges across batches stay
+    legal, as in `Graph`'s COO semantics).  `add_props` must supply a
+    column for every edge property the target graph carries: zero-filling
+    a weight would silently create zero-cost edges.
+    """
+
+    add_src: np.ndarray = None
+    add_dst: np.ndarray = None
+    add_props: Dict[str, np.ndarray] = None
+    rem_src: np.ndarray = None
+    rem_dst: np.ndarray = None
+
+    def __post_init__(self):
+        def ids(a):
+            return (np.zeros(0, np.int64) if a is None
+                    else np.asarray(a, dtype=np.int64).reshape(-1))
+        self.add_src, self.add_dst = ids(self.add_src), ids(self.add_dst)
+        self.rem_src, self.rem_dst = ids(self.rem_src), ids(self.rem_dst)
+        assert self.add_src.shape == self.add_dst.shape
+        assert self.rem_src.shape == self.rem_dst.shape
+        self.add_props = {k: np.asarray(v)
+                          for k, v in (self.add_props or {}).items()}
+        for k, v in self.add_props.items():
+            assert v.shape[0] == self.num_adds, f"add prop {k} length"
+
+    @property
+    def num_adds(self) -> int:
+        return int(self.add_src.shape[0])
+
+    @property
+    def num_removes(self) -> int:
+        return int(self.rem_src.shape[0])
+
+
+@dataclasses.dataclass
+class DeltaReport:
+    """What an `apply_edge_delta` did, in ORIGINAL vertex ids.
+
+    The warm-start seeding rules (`repro_torch.core.incremental`) read it:
+    `added_src` endpoints are re-activated so new edges deliver, and
+    `removed_dst` endpoints seed the min-monoid invalidation pass.
+    `removed_*` list every retired live edge instance (a pair matching two
+    parallel edges appears twice); `compacted` flags that the spare
+    capacity ran out and the edge/agent shapes were rebuilt.
+    """
+
+    added_src: np.ndarray
+    added_dst: np.ndarray
+    removed_src: np.ndarray
+    removed_dst: np.ndarray
+    compacted: bool = False
+
+    @property
+    def num_adds(self) -> int:
+        return int(self.added_src.shape[0])
+
+    @property
+    def num_removed(self) -> int:
+        return int(self.removed_src.shape[0])
+
+
+def _offending(rows: np.ndarray, limit: int = 8) -> str:
+    shown = ", ".join(str(int(r)) for r in rows[:limit])
+    more = f", ... ({rows.shape[0]} total)" if rows.shape[0] > limit else ""
+    return shown + more
+
+
+def validate_edge_delta(delta: "EdgeDelta", num_vertices: int,
+                        live_keys: Optional[np.ndarray] = None
+                        ) -> Optional[np.ndarray]:
+    """Up-front `EdgeDelta` validation shared by every delta-ingress path
+    (`Graph.apply_edge_delta`, `DevicePartition.apply_edge_delta`,
+    `agent_graph.apply_edge_delta`), so a malformed batch fails with the
+    offending ROW INDICES: out-of-range ids, a duplicated add row, or a
+    removal matching no live edge.  Every path raises the same error, with
+    the same message, for the same delta.
+
+    `live_keys` is the caller's pre-delta live edge set as `src * V + dst`
+    int64 keys in ORIGINAL vertex ids; without it the liveness check is
+    skipped.  Returns the rows of `live_keys` that the removals retire
+    (`match_removals`), or None without `live_keys`.
+    """
+    V = np.int64(num_vertices)
+    for label, ids in (("add_src", delta.add_src),
+                       ("add_dst", delta.add_dst),
+                       ("rem_src", delta.rem_src),
+                       ("rem_dst", delta.rem_dst)):
+        bad = np.flatnonzero((ids < 0) | (ids >= V))
+        if bad.size:
+            raise ValueError(
+                f"EdgeDelta.{label} has out-of-range vertex ids at rows "
+                f"[{_offending(bad)}]: values "
+                f"[{_offending(ids[bad])}] outside [0, {num_vertices})")
+    if delta.num_adds:
+        keys = delta.add_src * V + delta.add_dst
+        _, first, counts = np.unique(keys, return_index=True,
+                                     return_counts=True)
+        if np.any(counts > 1):
+            dup_mask = np.ones(keys.shape[0], dtype=bool)
+            dup_mask[first] = False
+            dup = np.flatnonzero(dup_mask)
+            raise ValueError(
+                f"EdgeDelta add batch repeats (src, dst) pairs at rows "
+                f"[{_offending(dup)}] — duplicate rows in one batch are "
+                f"almost always a construction bug; submit parallel edges "
+                f"in separate deltas")
+    if live_keys is None:
+        return None
+    sel, dead = match_removals(live_keys, delta.rem_src * V + delta.rem_dst)
+    if dead.size:
+        pairs = [f"({int(delta.rem_src[r])}, {int(delta.rem_dst[r])})"
+                 for r in dead[:8]]
+        raise ValueError(
+            f"EdgeDelta removal rows [{_offending(dead)}] match no "
+            f"live edge (already tombstoned or never present): "
+            f"{', '.join(pairs)}")
+    return sel
+
+
+def removal_selector(src: np.ndarray, dst: np.ndarray, rem_src: np.ndarray,
+                     rem_dst: np.ndarray, id_space: int) -> np.ndarray:
+    """Boolean selector over (src, dst) rows matching any removed pair.
+
+    `id_space` must exceed every id in play (keys are `src * id_space +
+    dst`); callers pass original |V| or the local slot count.
+    """
+    n = np.int64(id_space)
+    return match_removals(
+        src.astype(np.int64) * n + dst.astype(np.int64),
+        rem_src.astype(np.int64) * n + rem_dst.astype(np.int64))[0]
+
+
+def stable_argsort(keys: np.ndarray, device=None) -> np.ndarray:
+    """`np.argsort(keys, kind="stable")`: the unique stable permutation,
+    computed by `torch.sort(stable=True)` on `device` when one is given
+    (the ingress of a partition sorts on the partition's device)."""
+    keys = np.asarray(keys)
+    if device is None or keys.size == 0:
+        return np.argsort(keys, kind="stable")
+    import torch
+    t = torch.from_numpy(np.ascontiguousarray(keys)).to(device)
+    return torch.sort(t, stable=True).indices.cpu().numpy()
+
+
+def merge_order(sorted_keys: np.ndarray, extra: np.ndarray) -> np.ndarray:
+    """`np.argsort(np.concatenate([sorted_keys, extra]), kind="stable")`
+    for keys whose first part is already sorted: a stable merge of the
+    sorted run with the stably sorted `extra`, O(n) beside the small
+    sort."""
+    n, a = sorted_keys.shape[0], extra.shape[0]
+    ob = np.argsort(extra, kind="stable")
+    pos = np.searchsorted(sorted_keys, extra[ob], side="right") + np.arange(a)
+    order = np.empty(n + a, dtype=np.int64)
+    at_extra = np.zeros(n + a, dtype=bool)
+    at_extra[pos] = True
+    order[pos] = n + ob
+    order[~at_extra] = np.arange(n)
+    return order
+
+
+def match_removals(keys: np.ndarray, rem_keys: np.ndarray):
+    """`(np.isin(keys, rem_keys), np.flatnonzero(~np.isin(rem_keys,
+    keys)))`: the rows of `keys` that a removal retires, and the removal
+    rows that match none, for int64 keys such as `src * n + dst`.  Only
+    keys whose 24-bit hash occurs among the removals' can match, so both
+    membership tests run on those candidates, a small share of `keys`."""
+    keys = np.asarray(keys, np.int64)
+    rem_keys = np.asarray(rem_keys, np.int64)
+    if rem_keys.size == 0 or keys.size == 0:
+        return (np.zeros(keys.shape[0], dtype=bool),
+                np.arange(rem_keys.shape[0]) if keys.size == 0
+                else np.zeros(0, np.int64))
+
+    def hash24(k):   # Fibonacci hashing: every bit of the key mixes in
+        return ((k.view(np.uint64) * np.uint64(0x9E3779B97F4A7C15))
+                >> np.uint64(40)).astype(np.int64)
+
+    seen = np.zeros(1 << 24, dtype=bool)
+    seen[hash24(rem_keys)] = True
+    cand = np.flatnonzero(seen[hash24(keys)])
+    ck = keys[cand]
+    sel = np.zeros(keys.shape[0], dtype=bool)
+    sel[cand[np.isin(ck, rem_keys)]] = True
+    dead = np.flatnonzero(~np.isin(rem_keys, ck))
+    return sel, dead
+
+
 def pad_edges(src: np.ndarray, dst: np.ndarray, target: int,
               pad_vertex: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Pad COO edge arrays to a static length.
@@ -146,8 +364,8 @@ def pad_edges(src: np.ndarray, dst: np.ndarray, target: int,
     return ps, pd, mask
 
 
-def csr_layout(src: np.ndarray, edge_mask: np.ndarray, num_slots: int
-               ) -> tuple[np.ndarray, np.ndarray, int]:
+def csr_layout(src: np.ndarray, edge_mask: np.ndarray, num_slots: int,
+               device=None) -> tuple[np.ndarray, np.ndarray, int]:
     """Src-sorted secondary index over padded (typically dst-sorted) edges.
 
     Returns `(indptr [num_slots+1], eidx [E_pad], max_deg)`: `eidx[p]` is
@@ -155,9 +373,10 @@ def csr_layout(src: np.ndarray, edge_mask: np.ndarray, num_slots: int
     frontier gather (`repro_torch.core.frontier`) reads `dst[eidx]` and
     `props[eidx]` from the canonical dst-sorted columns.  Padded edges
     (mask False) are excluded, so `max_deg` is the true maximum out-degree.
+    `device` is where the src sort runs (`stable_argsort`).
     """
     real = np.flatnonzero(edge_mask)
-    order = real[np.argsort(src[real], kind="stable")]
+    order = real[stable_argsort(src[real], device)]
     counts = np.bincount(src[real], minlength=num_slots).astype(np.int64)
     indptr = np.zeros(num_slots + 1, dtype=np.int32)
     indptr[1:] = np.cumsum(counts)
@@ -193,16 +412,3 @@ def degree_buckets(indptr: np.ndarray, num_slots: int,
         sizes.append(int(members.shape[0]))
         max_degs.append(int(members.max()) if members.size else 0)
     return bucket_id, tuple(sizes), tuple(max_degs)
-
-
-def sort_edges_by_dst(src: np.ndarray, dst: np.ndarray,
-                      edge_props: Optional[Dict[str, np.ndarray]] = None):
-    """Sort COO edges by destination (the combine key).
-
-    Dst-sorted order makes the ⊕ a contiguous segmented reduction: the
-    combine kernel walks each destination's edge range through a row
-    pointer (`repro_torch.kernels.segment_combine.segment_row_pointer`).
-    """
-    order = np.argsort(dst, kind="stable")
-    props = {k: v[order] for k, v in (edge_props or {}).items()}
-    return src[order], dst[order], props, order

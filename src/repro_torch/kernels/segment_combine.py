@@ -48,11 +48,15 @@ _I32_MAX = 2**31 - 1
 
 # Kernel launches per route; reset by callers that count a run.
 LAUNCHES = {"dense": 0, "tile": 0, "compact": 0}
+# Host reads of a compaction's valid total (`compact_lanes_cuda` called
+# without `valid`); reset with the launches.
+HOST_READS = {"compact_total": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    HOST_READS["compact_total"] = 0
 
 
 def segment_row_pointer(dst_sorted: torch.Tensor,
@@ -245,7 +249,11 @@ def compact_lanes_cuda(dst: torch.Tensor, num_segments: int,
             dst.data_ptr(), n, num_segments, counts, offsets,
             total.data_ptr(), -1 if valid is None else valid, stream)
         _raise_on(rc, "compact_lanes count")
-        kept = int(total.item()) if valid is None else valid
+        if valid is None:
+            kept = int(total.item())
+            HOST_READS["compact_total"] += 1
+        else:
+            kept = valid
         out = torch.empty(2 * kept, dtype=torch.int32, device=dev)
         dst_c, lane = out[:kept], out[kept:]
         rc = lib.compact_lanes_write_launch(

@@ -102,3 +102,40 @@ def test_partition_edges_same_as_jax_hdrf(graphs):
     g, jg = graphs
     assert np.array_equal(tstream.partition_edges(g, 8),
                           jstream.partition_edges(jg, 8))
+
+
+# ------------------------------------------------------------ delta ingress
+@pytest.mark.parametrize("frac", [0.01, 0.05])
+@pytest.mark.parametrize("method,pad,compacted", [("hdrf", 64, False),
+                                                  ("hash", 8, True)])
+def test_apply_edge_delta_equal(graphs, method, pad, compacted, frac):
+    """`apply_edge_delta` equals the JAX package's byte for byte at k = 4:
+    on HDRF shards with slack in their pads (the fast path: tombstones,
+    adds on owner(dst), fresh scatter agents and their exchange pairs),
+    and on the hash partition's tight pads (the compaction path, which
+    keeps `old2new`)."""
+    from repro.core.agent_graph import apply_edge_delta as japply
+    from repro.graph.structures import EdgeDelta as JaxDelta
+    from repro_torch.graph.structures import EdgeDelta
+    from torch_parity import mutation_delta, report_arrays
+    g, jg = graphs
+    part = tstream.partition_edges(g, 4, method=method)
+    t = tag.build_agent_graph(g, part, 4, pad_multiple=pad)
+    j = jag.build_agent_graph(jg, part, 4, pad_multiple=pad)
+    fields = mutation_delta(g, seed=5, frac=frac)
+    new, rep = tag.apply_edge_delta(t, EdgeDelta(**fields))
+    jnew, jrep = japply(j, JaxDelta(**fields))
+    assert_same(new, jnew)
+    a, b = report_arrays(rep), report_arrays(jrep)
+    for key in a:
+        assert a[key].dtype == b[key].dtype and np.array_equal(a[key], b[key])
+    assert rep.compacted == compacted
+    assert np.array_equal(new.old2new, t.old2new)
+    if not compacted:   # new agents and pairs were appended in the slack
+        assert new.num_scatter.sum() > t.num_scatter.sum()
+        assert_same(tag.split_edge_tiles(new), jag.split_edge_tiles(jnew))
+    # a second delta on the mutated graph
+    fields2 = mutation_delta(g.apply_edge_delta(EdgeDelta(**fields)),
+                             seed=6, frac=frac / 2)
+    assert_same(tag.apply_edge_delta(new, EdgeDelta(**fields2))[0],
+                japply(jnew, JaxDelta(**fields2))[0])

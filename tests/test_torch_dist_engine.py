@@ -37,7 +37,8 @@ from repro.core.engine import GREEngine as JaxEngine
 from repro.graph.structures import Graph as JaxGraph
 from repro_torch.core import algorithms
 from repro_torch.core.agent_graph import build_agent_graph
-from repro_torch.core.dist_engine import DistGREEngine, stacked_from_arrays
+from repro_torch.core.dist_engine import (DistGREEngine, original_order,
+                                          stacked_from_arrays)
 from repro_torch.graph.generators import rmat_edges
 
 from torch_parity import state_arrays, to_graph
@@ -172,6 +173,23 @@ for name, backend in CASES:
                       max_steps=20 if name == "pagerank" else 300)
     out[name + "/" + backend + "/vd"] = res
     out[name + "/" + backend + "/step"] = np.asarray(st.step)
+from repro.core.dist_engine import _squeeze0
+for ex in ("agent", "pipelined"):
+    for strat in PLAN_STRATEGIES:
+        eng = DistGREEngine(algorithms.sssp_program(), mesh, ("graph",),
+                            exchange=ex, frontier=strat,
+                            frontier_cap=PLAN_CAP)
+        topo = eng.device_topology(ags[False])
+        parts = ([topo.part] if ex == "agent"
+                 else [topo.tiles.part_remote, topo.tiles.part_local])
+        key = "plan/" + ex + "/" + strat
+        out[key + "/cap"] = np.asarray(eng.plan.frontier_cap)
+        out[key + "/strategy"] = np.asarray(eng.plan.strategy)
+        for t, p in enumerate(parts):
+            fp = eng.plan.frontier(_squeeze0(p))
+            out[key + "/" + str(t) + "/kind"] = np.asarray(fp.kind)
+            out[key + "/" + str(t) + "/caps"] = np.asarray(
+                -1 if fp.caps is None else fp.caps)
 np.savez(sys.argv[2], **out)
 print("JAX_DIST_S", time.perf_counter() - t0)
 """
@@ -183,6 +201,8 @@ def jax_dist(tmp_path_factory):
     devices must be set before JAX starts)."""
     path = tmp_path_factory.mktemp("jax_dist") / "dist.npz"
     script = (JAX_SCRIPT.replace("SOURCES4", repr(SOURCES4))
+              .replace("PLAN_STRATEGIES", repr(PLAN_STRATEGIES))
+              .replace("PLAN_CAP", repr(PLAN_CAP))
               .replace("BACKENDS", repr({b: BACKENDS[b]
                                          for b in JAX_BACKENDS}))
               .replace("CASES", repr(JAX_CASES)))
@@ -198,6 +218,38 @@ def agent_graphs_k4(graphs):
     g, gu = graphs
     return {(False, JAX_K): build_agent_graph(g, "hdrf", JAX_K),
             (True, JAX_K): build_agent_graph(gu, "hdrf", JAX_K)}
+
+
+PLAN_CAP = 16
+PLAN_STRATEGIES = ("dense", "flat", "compact")
+
+
+@pytest.mark.parametrize("strategy", PLAN_STRATEGIES)
+@pytest.mark.parametrize("exchange", ["agent", "pipelined"])
+def test_explicit_frontier_cap_is_per_shard(jax_dist, agent_graphs_k4,
+                                            exchange, strategy):
+    """An explicit `frontier_cap` is each shard's capacity, as in the JAX
+    `DistGREEngine`: the stacked plan holds k times it, and each partition
+    the backend scans resolves to JAX's plan kind, a flat tile to k times
+    JAX's per-shard capacity and a bucketed one to as many buckets."""
+    eng = DistGREEngine(algorithms.sssp_program(), JAX_K, exchange=exchange,
+                        frontier=strategy, frontier_cap=PLAN_CAP,
+                        device="cpu")
+    key = f"plan/{exchange}/{strategy}"
+    assert eng.frontier_cap == int(jax_dist[key + "/cap"]) == PLAN_CAP
+    assert eng.plan.frontier_cap == JAX_K * PLAN_CAP
+    assert eng.plan.strategy == str(jax_dist[key + "/strategy"])
+    topo = eng.device_topology(agent_graphs_k4[False, JAX_K])
+    parts = ([topo.part] if exchange == "agent"
+             else [topo.tiles.part_remote, topo.tiles.part_local])
+    for t, part in enumerate(parts):
+        fp = eng.plan.frontier(part)
+        assert fp.kind == str(jax_dist[f"{key}/{t}/kind"])
+        jcaps = jax_dist[f"{key}/{t}/caps"]
+        if fp.kind == "flat":
+            assert fp.caps == JAX_K * int(jcaps)
+        elif fp.kind == "bucketed":
+            assert len(fp.caps) == jcaps.shape[0]
 
 
 @pytest.mark.parametrize("name,backend", JAX_CASES)
@@ -377,3 +429,112 @@ def test_needs_a_card_unless_cpu():
             DistGREEngine(algorithms.bfs_program(), K, **kw)
     assert DistGREEngine(algorithms.bfs_program(), K,
                          device="cpu").device.type == "cpu"
+
+
+# ------------------------------------------------------------ incremental
+MUT_BACKENDS = ("agent", "dense", "pipelined")
+MUT_PROGRAMS = ("bfs", "sssp", "cc")
+
+
+@pytest.fixture(scope="module")
+def mutation_inputs():
+    """Small directed and undirected graphs, their churn deltas, their HDRF
+    agent graphs at k = 4 with slack in the pads (the fast path) and their
+    hash agent graphs with tight pads (the compaction path), and the JAX
+    single-shard cold results on the mutated graphs."""
+    from repro.graph.structures import EdgeDelta as JaxDelta
+    from torch_parity import mutation_delta
+    g = rmat_edges(scale=7, edge_factor=4, seed=11, weights=True).dedup()
+    gu = rmat_edges(scale=7, edge_factor=4, seed=5).dedup().as_undirected()
+    out = {}
+    for undirected, gg in ((False, g), (True, gu)):
+        fields = mutation_delta(gg, seed=33 if undirected else 21,
+                                frac=0.08, undirected=undirected)
+        jg2 = to_graph(gg, JaxGraph).apply_edge_delta(JaxDelta(**fields))
+        ags = {"fast": build_agent_graph(gg, "hdrf", JAX_K,
+                                         pad_multiple=64),
+               "compaction": build_agent_graph(gg, "hash", JAX_K)}
+        out[undirected] = (fields, ags, JaxPartition.from_graph(jg2))
+    return out
+
+
+@pytest.mark.parametrize("path", ["fast", "compaction"])
+@pytest.mark.parametrize("backend", MUT_BACKENDS)
+@pytest.mark.parametrize("name", MUT_PROGRAMS)
+def test_rerun_incremental_equals_cold(mutation_inputs, name, backend,
+                                       path):
+    """`rerun_incremental` at k = 4 with an explicit per-shard
+    `frontier_cap` lands bitwise on the JAX package's cold single-shard
+    result on the mutated graph (tests/test_conformance.py's mutation rows),
+    through the delta ingress's fast path and its compaction."""
+    from repro_torch.graph.structures import EdgeDelta
+    mk, jmk, source, undirected = PROGRAMS[name]
+    fields, ags, cold_part = mutation_inputs[undirected]
+    ag = ags[path]
+    eng = DistGREEngine(mk(), JAX_K, exchange=backend, frontier_cap=16,
+                        device="cpu")
+    _, prev = eng.run(ag, source=source, max_steps=MAX_STEPS)
+    new_ag, got, out, report = eng.rerun_incremental(
+        ag, prev, EdgeDelta(**fields), source=source, max_steps=MAX_STEPS)
+    assert report.compacted == (path == "compaction")
+    assert np.array_equal(new_ag.old2new, ag.old2new)
+    jeng = JaxEngine(jmk())
+    want = jeng.run(cold_part, jeng.init_state(cold_part, source=source),
+                    MAX_STEPS)
+    hold(name, got, np.asarray(want.vertex_data))
+    assert set(eng.last_rerun_s) == {"apply_edge_delta", "warm_start_state",
+                                     "device_topology", "run"}
+
+
+def test_pagerank_warm_start_stacked(mutation_inputs):
+    """PageRank's distributed warm start carries the stacked values forward
+    and converges to the cold run's fixed point on the mutated graph."""
+    from repro_torch.graph.structures import EdgeDelta
+    fields, ags, cold_part = mutation_inputs[False]
+    eng = DistGREEngine(algorithms.pagerank_program(), JAX_K, device="cpu")
+    _, prev = eng.run(ags["fast"], max_steps=60)
+    _, got, _, _ = eng.rerun_incremental(ags["fast"], prev,
+                                         EdgeDelta(**fields), max_steps=60)
+    jeng = JaxEngine(jalg.pagerank_program())
+    want = jeng.run(cold_part, jeng.init_state(cold_part), 60)
+    np.testing.assert_allclose(got, np.asarray(want.vertex_data), rtol=0,
+                               atol=2e-3)
+
+
+def test_serving_tick_refuses_async(agent_graphs):
+    eng = DistGREEngine(algorithms.bfs_program(4), K, exchange="async",
+                        device="cpu")
+    with pytest.raises(ValueError, match="serving tick"):
+        eng.make_superstep(agent_graphs[False, K])
+
+
+@pytest.mark.parametrize("backend", ["pipelined", "agent_overlap",
+                                     "async_s2", "agent"])
+def test_split_tiles_pass_their_valid_lane_count(agent_graphs, monkeypatch,
+                                                 backend):
+    """Every tile-route call, on the split tiles' compact spaces as on the
+    stacked slot space, carries its count of valid lanes, so the route
+    never reads it back from the device; the plain route checks the count
+    against the tile (a wrong one raises), so these runs prove that every
+    real edge of a split tile lands inside its compact space."""
+    from repro_torch.kernels import ops
+    calls = []
+    tile = ops.tile_segment_combine
+
+    def record(msgs, dst, num_segments, op="sum", valid=None):
+        calls.append((num_segments, valid))
+        return tile(msgs, dst, num_segments, op, valid)
+
+    monkeypatch.setattr(ops, "tile_segment_combine", record)
+    ag = agent_graphs[False, K]
+    got, _ = run_port(agent_graphs, "bfs_x4", backend, "compact", K)
+    want = {K * (ag.c_pad + 1), K * (ag.cap + 1)}
+    spaces = {n for n, _ in calls}
+    assert calls and all(v is not None for _, v in calls)
+    if backend != "agent":
+        assert want <= spaces
+    else:
+        assert spaces == {K * ag.num_slots}
+    _, want_state = run_port(agent_graphs, "bfs_x4", "agent", "dense", K)
+    np.testing.assert_array_equal(got, original_order(
+        ag, want_state.vertex_data))

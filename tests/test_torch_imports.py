@@ -58,6 +58,25 @@ def test_distributed_modules_stand_alone(module):
     assert out.strip() == "[]"
 
 
+SLICE6_MODULES = ("repro_torch.core.incremental",
+                  "repro_torch.serving.graph_scheduler",
+                  "repro_torch.serving")
+
+
+@pytest.mark.parametrize("module", SLICE6_MODULES)
+def test_incremental_and_serving_modules_stand_alone(module):
+    """Incremental re-convergence and graph serving import on their own,
+    with neither `jax` nor `repro` loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
 def test_port_sources_never_import_jax_or_repro():
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|,|$)",
                          re.M)
@@ -87,6 +106,13 @@ def test_cuda_entry_points_raise_without_a_card():
     for kw in ({}, {"device": "cuda"}):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DistGREEngine(algorithms.sssp_program(), 2, **kw)
+    # the delta ingress builds its partition on the card unless the
+    # partition it mutates lies on the CPU
+    from repro_torch.graph.structures import EdgeDelta
+    part = DevicePartition.from_graph(g, device="cpu")
+    new, _ = part.apply_edge_delta(EdgeDelta(rem_src=g.src[:1],
+                                             rem_dst=g.dst[:1]))
+    assert new.device.type == "cpu" and new.src.device.type == "cpu"
 
 
 def test_lm_entry_points_raise_without_a_card():

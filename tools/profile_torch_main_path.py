@@ -2,7 +2,8 @@
 """Device-time breakdown of the PyTorch port's main paths on one NVIDIA card.
 
   python3 tools/profile_torch_main_path.py [--scale 22] [--src DIR]
-                                          [--lm-only | --dist]
+                                          [--lm-only | --dist |
+                                           --incremental]
 
 Graph path: builds the inputs of `chip_smoke.py` with its own `build_inputs`
 (Graph500 R-MAT a=0.57, b=c=0.19, edge factor 16, seed 0, weights; both
@@ -21,6 +22,14 @@ kernels launched inside the exchanges' gathers, scatters, flush routes
 and shard-axis reductions (`repro_torch.core.exchange`,
 `repro_torch.dist.comm`) are "exchange", inside `GREEngine.apply`
 "apply"; the combine kernel keeps its own group wherever it runs.
+Incremental path and serving ticks (`--incremental`, alone): the 1%
+churn delta of `chip_smoke.py` step 3c on the directed graph, then SSSP's
+warm rerun (`warm_start_state` and `run`) against its cold run on the
+mutated partition, and four serving ticks of 8-lane BFS and PPR batchers
+(8 queries admitted, retired between ticks), grouped by layer:
+"warm_start" (the host passes and their transfers), "frontier" (the frontier
+counts and their host read), "apply", "admit" and "fetch" (a finished
+lane's result) of the batcher.
 
 Each program runs once to warm up, then once under `torch.profiler`.  For
 each it prints one JSON line: the wall time of the traced run, the
@@ -266,6 +275,62 @@ def profile_dist(scale: int) -> None:
                     layers=True)
 
 
+def label_incremental_layers():
+    """Wrap the incremental and serving layers in labelled ranges."""
+    from repro_torch.core import frontier
+    from repro_torch.core.engine import GREEngine
+    from repro_torch.serving.graph_scheduler import GraphQueryBatcher
+    GREEngine.warm_start_state = labelled("warm_start",
+                                          GREEngine.warm_start_state)
+    GREEngine.apply = labelled("apply", GREEngine.apply)
+    frontier.frontier_counts = labelled("frontier", frontier.frontier_counts)
+    GraphQueryBatcher._admit = labelled("admit", GraphQueryBatcher._admit)
+    GraphQueryBatcher._lane_result = labelled("fetch",
+                                              GraphQueryBatcher._lane_result)
+
+
+def profile_incremental(scale: int) -> None:
+    from chip_smoke import INC_CHURN, INC_SEED, build_inputs, churn_delta
+    from repro_torch.core import algorithms
+    from repro_torch.core.engine import DevicePartition, GREEngine
+    from repro_torch.serving import GraphQueryBatcher
+
+    graph, _, part, _, source, sources = build_inputs(scale)
+    delta = churn_delta(graph, INC_CHURN, INC_SEED)
+    spart = DevicePartition.from_graph(graph, edge_slack=delta.num_adds,
+                                       device="cuda")
+    t0 = time.perf_counter()
+    new_part, report = spart.apply_edge_delta(delta)
+    print(json.dumps({"apply_edge_delta_s": time.perf_counter() - t0}),
+          flush=True)
+    del spart
+    eng = GREEngine(algorithms.sssp_program(), frontier="auto")
+    prev = eng.run(part, eng.init_state(part, source=source), 10_000)
+    label_incremental_layers()
+    profile("incremental_sssp_warm", lambda: eng.run(
+        new_part, eng.warm_start_state(new_part, prev, report,
+                                       source=source), 10_000), layers=True)
+    profile("incremental_sssp_cold", lambda: eng.run(
+        new_part, eng.init_state(new_part, source=source), 10_000),
+        layers=True)
+    del new_part
+
+    def ticks(program):
+        def run():
+            b = GraphQueryBatcher(GREEngine(program), part, steps_per_tick=4)
+            for s in sources[:8]:
+                b.submit(s)
+            b.pump()
+            for _ in range(4):
+                b.tick()
+                b.pump()
+        return run
+    profile("serving_bfs_x8_4_ticks", ticks(algorithms.bfs_program(8)),
+            layers=True)
+    profile("serving_ppr_x8_4_ticks", ticks(algorithms.ppr_push_program(8)),
+            layers=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -276,6 +341,8 @@ def main() -> int:
                     help="profile the LM path alone")
     ap.add_argument("--dist", action="store_true",
                     help="profile the distributed path alone")
+    ap.add_argument("--incremental", action="store_true",
+                    help="profile a warm rerun and serving ticks alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: needs an NVIDIA card", file=sys.stderr)
@@ -285,6 +352,8 @@ def main() -> int:
     print(json.dumps({"repro_torch": repro_torch.__file__}), flush=True)
     if args.dist:
         profile_dist(args.scale)
+    elif args.incremental:
+        profile_incremental(args.scale)
     else:
         profile_lm()
         if not args.lm_only:
