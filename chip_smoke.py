@@ -44,6 +44,41 @@
    numpy/scipy oracle: one untimed pass, then the timed pass, with the
    combine and compaction kernels' launch counters set to 0 before it and
    read after it.
+3a. Right after step 3, on its graph and source: plan autotuning
+   (`repro_torch.tuning.tune`) for SSSP over the default `PlanSearchSpace`
+   (dense, flat at 4 caps, compact at 4 caps x 3 bucket ladders, the
+   engine's default plan seeded into the final rung; each ladder's
+   partition built once) and for BFS over `SMOKE_SPACE`, each into a plan
+   cache of its own in a temporary directory (`tune` lines: candidates,
+   every final-rung time, the candidates the card cannot run (a tile
+   beyond the kernels' int32 lanes, or out of memory: `inf`), the winner,
+   its time against the default's, the partition builds' seconds).  A second `tune` must hit the cache with no
+   probe.  `GREEngine(plan="auto-tuned")` then adopts the stored plan on
+   the partition of its ladder; its first 3 supersteps' combine calls are
+   held against the plain version, and its run (untimed, then timed with
+   the combine counts set to 0 before and read after, beside the default
+   engine's) must equal the default engine's and the oracle bitwise
+   (`tuned_run` lines).  Then multi-stage Brandes BC
+   (`repro_torch.core.multistage`) over 64 sources (numpy seed 0, among
+   the vertices with out-edges) in batches of 16 payload lanes
+   (`BC_BATCH`: the dense scan's messages and gathered rows take
+   2·E·3·batch·4 bytes, ~25 GB at 16), `max_depth` the largest finite BFS
+   depth from these sources plus one: every combine call of the first
+   batch held against the plain version as it returns, its depths exactly
+   equal to a host Brandes in numpy/scipy float64 (`host_brandes`), σ within
+   1e-4 and BC within 1e-3 relative (f32 sums of positive terms: each
+   level adds a few ulps a sum, and δ compounds σ's error over the
+   levels); then the 4 batches through `accumulate_bc` (what
+   `betweenness_centrality` runs) with the counts set to 0 before and read
+   after, one `bc_batch` line a batch (wall, supersteps), the peak memory,
+   and the dense route launched (the tile route too where `auto` compacts:
+   at scale 22 its worst-case hub tile out-scans the dense path, so it
+   stays dense).  Then `kernels.ops.embedding_bag` on
+   autoint's largest table, `[10_000_000, 16]` f32, with 4,096 sorted bags
+   of 1-64 ids and per-id weights: one counted call, its combine call
+   held, the whole function within SUM_RTOL of the plain version in
+   float64, its time, bound and `torch.nn.functional.embedding_bag`'s time
+   (a yardstick only).
 3b. Distributed phase, after the single-shard partitions are freed: the
    same graph on k = 8 shards stacked on the card
    (`repro_torch.core.dist_engine`), placed by `partition_edges(method=
@@ -66,6 +101,11 @@
    |V_s| + |V_c| for agent and pipelined (a window's share for async),
    |V_s| + k·k·cap for dense (paper §5.1), beside the entries counted
    through the communicator (padding and activity flags included).
+   Then the SSSP winner of step 3a, stored with `phases="pipelined"`
+   under the k = 8 agent graph's plan key: `DistGREEngine(plan=
+   "auto-tuned")` must select the pipelined exchange, and its SSSP must
+   equal the default (agent) engine's and the oracle bitwise
+   (`dist_tuned` line).
    Then the kernels at the distributed path's own shapes: every combine
    call of the first 3 supersteps of PageRank and SSSP under agent,
    dense and pipelined, the compacted BFS under agent and pipelined and
@@ -160,7 +200,10 @@
    requests through the batcher must give exactly the tokens of offline
    greedy generation through `lm_forward`.
 6. Prints the `kernels` JSON line (the combine kernel's two routes, the
-   compaction and the attention kernel), the nvidia-smi line, and last
+   compaction, `embedding_bag` and the attention kernel; the combine
+   entries also carry their launches in step 3a's tuned runs and BC pass
+   and the (op, width) of every call held on the path's own inputs), the
+   nvidia-smi line, and last
    `{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero; without a card it
@@ -175,6 +218,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -665,6 +709,340 @@ def check_lanes(part, sources, multi, single0):
         assert torch.equal(multi[:, lane], out.vertex_data), f"lane {lane}"
     log(f"multi_source lanes {(0,) + lanes} bitwise equal to single-source "
         "runs")
+
+
+# ------------------------------------------------------------- tuning phase
+def probe_logger(prog, graph, source):
+    """A `ProbeEvaluator` on the card that keeps each probe's time and each
+    bucket ladder's partition build seconds (the evaluator is `tune`'s
+    measurement half, passed in as it lets a caller do)."""
+    from repro_torch.tuning import ProbeEvaluator
+
+    class Logged(ProbeEvaluator):
+        def __init__(self):
+            super().__init__(prog, graph, source=source, device="cuda")
+            self.probes, self.build_s = [], {}
+
+        def partition(self, bounds=None):
+            key = tuple(bounds) if bounds else None
+            if key not in self._parts:
+                t0 = time.perf_counter()
+                super().partition(bounds)
+                torch.cuda.synchronize()
+                self.build_s[str(key)] = time.perf_counter() - t0
+            return super().partition(bounds)
+
+        def evaluate(self, plan, probe_steps=2, iters=1):
+            us = super().evaluate(plan, probe_steps, iters)
+            self.probes.append((plan, probe_steps, us))
+            return us
+    return Logged()
+
+
+def plan_label(plan) -> str:
+    return (f"{plan.strategy}/cap={plan.frontier_cap}/"
+            f"bounds={plan.bucket_bounds}")
+
+
+def tuning_phase(graph, part, source, ref, cache_dir):
+    """`tune` for SSSP (the default `PlanSearchSpace`: dense, flat at 4
+    caps, compact at 4 caps x 3 bucket ladders, and the engine's default
+    plan seeded into the final rung) and for BFS (`SMOKE_SPACE`) on the
+    main path's graph, each into a plan cache of its own under
+    `cache_dir` (the two programs' keys are equal: both scalar, min and
+    halting); a second `tune` must hit the cache with no probe.  Then `GREEngine(plan="auto-tuned")`
+    adopts the stored plan on the partition of its bucket ladder: its first
+    3 supersteps' combine calls are held against the plain version, and
+    its run (untimed, then timed with the combine counts set to 0 just
+    before and read just after) must equal the default engine's on the
+    main path's partition and the oracle bitwise.  Returns the SSSP winner
+    and the counts of the timed tuned runs."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.engine import GREEngine
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.tuning import SMOKE_SPACE, PlanSearchSpace, tune
+    t_phase = time.perf_counter()
+    winners, launches = {}, {r: 0 for r in sc.LAUNCHES}
+    for name, factory, space in (
+            ("sssp", algorithms.sssp_program, PlanSearchSpace()),
+            ("bfs", algorithms.bfs_program, SMOKE_SPACE)):
+        prog = factory()
+        cache_path = cache_dir / f"{name}.json"
+        ev = probe_logger(prog, graph, source)
+        t0 = time.perf_counter()
+        res = tune(prog, graph, source=source, cache=cache_path, space=space,
+                   evaluator=ev)
+        tune_s = time.perf_counter() - t0
+        final = max(steps for _, steps, _ in ev.probes)
+        rec = {"program": name, "key": res.key,
+               "candidates": sum(steps == 2 for _, steps, _ in ev.probes),
+               "num_probes": res.num_probes,
+               "final_rung_us": {plan_label(p): us for p, steps, us
+                                 in ev.probes if steps == final},
+               "unrunnable": [plan_label(p) for p, steps, us in ev.probes
+                              if steps == 2 and math.isinf(us)],
+               "winner": res.plan.to_json(), "probe_us": res.probe_us,
+               "default_us": res.default_us,
+               "partition_build_s": ev.build_s, "tune_s": tune_s}
+        log("tune", json.dumps(rec))
+        n = ev.num_probes
+        hit = tune(prog, graph, source=source, cache=cache_path,
+                   space=space, evaluator=ev)
+        if not (hit.from_cache and hit.num_probes == 0
+                and ev.num_probes == n and hit.plan == res.plan):
+            raise AssertionError(f"tune {name}: the second call is no "
+                                 f"clean cache hit: {hit}")
+        log(f"tune_hit program={name} from_cache={hit.from_cache} "
+            f"num_probes={hit.num_probes}")
+        # the auto-tuned engine on the partition of the winner's ladder
+        tpart = ev.partition(res.plan.bucket_bounds)
+        eng = GREEngine(prog, plan="auto-tuned", plan_cache=cache_path)
+        st = eng.init_state(tpart, source=source)
+        if (eng.make_plan() != dataclasses.replace(res.plan,
+                                                   bucket_bounds=None)
+                or eng.bucket_bounds != res.plan.bucket_bounds):
+            raise AssertionError(f"tuned {name}: adopted {eng.make_plan()}"
+                                 f" bounds {eng.bucket_bounds}, stored "
+                                 f"{res.plan}")
+        held = hold_block(f"tuned {name}", lambda: eng.run(tpart, st, 3))
+        default = GREEngine(prog)
+        dst0 = default.init_state(part, source=source)
+        eng.run(tpart, st, 10_000)                      # untimed
+        default.run(part, dst0, 10_000)
+        before = dict(sc.LAUNCHES)
+        out, ms = timed(lambda: eng.run(tpart, st, 10_000))
+        runs = {r: sc.LAUNCHES[r] - before[r] for r in sc.LAUNCHES}
+        for r in launches:
+            launches[r] += runs[r]
+        dout, dms = timed(lambda: default.run(part, dst0, 10_000))
+        if not torch.equal(out.vertex_data, dout.vertex_data):
+            raise AssertionError(f"tuned {name} != the default engine's")
+        assert_exact(f"tuned {name}", out.vertex_data, ref[name])
+        log("tuned_run", json.dumps({
+            "program": name, "plan": plan_label(eng.make_plan()),
+            "supersteps": out.step, "wall_ms": ms,
+            "default_supersteps": dout.step, "default_wall_ms": dms,
+            "launches": runs, "held": held}))
+        winners[name] = res.plan
+        del ev, tpart, eng, st, default, dst0, out, dout
+        torch.cuda.empty_cache()
+    if launches["dense"] + launches["tile"] <= 0:
+        raise AssertionError(f"the tuned runs launched no combine {launches}")
+    log(f"tuning_phase_s={time.perf_counter() - t_phase:.3f} "
+        f"launches={json.dumps(launches)}")
+    return winners["sssp"], launches
+
+
+# -------------------------------------------------------- multi-stage BC
+BC_SOURCES = 64
+BC_BATCH = 16       # dense messages of [E, 3·batch] f32 and their gathered
+                    # rows: 2·E·3·batch·4 bytes, ~25 GB at 16, ~100 GB at 64
+BC_SIGMA_RTOL = 1e-4
+BC_RTOL = 1e-3
+
+
+def host_brandes(graph, sources):
+    """Brandes over `sources` in numpy/scipy float64, level-synchronous:
+    forward σ by sparse products of the transposed adjacency with the
+    frontier's σ, backward δ by products of the adjacency with the next
+    level's (1 + δ)/σ.  Returns (depth, σ, Σ_lanes δ), a source's own δ
+    zero at its vertex."""
+    import scipy.sparse as sp
+    n, s = graph.num_vertices, len(sources)
+    adj = sp.csr_matrix((np.ones(graph.num_edges), (graph.src, graph.dst)),
+                        shape=(n, n))
+    adj_t = adj.T.tocsr()
+    lanes = np.arange(s)
+    depth = np.full((n, s), np.inf)
+    sigma = np.zeros((n, s))
+    depth[sources, lanes] = 0.0
+    sigma[sources, lanes] = 1.0
+    front = np.zeros((n, s), dtype=bool)
+    front[sources, lanes] = True
+    level = 0
+    while front.any():
+        contrib = adj_t @ np.where(front, sigma, 0.0)
+        front = (contrib > 0) & np.isinf(depth)
+        level += 1
+        depth[front] = level
+        sigma[front] = contrib[front]
+    delta = np.zeros((n, s))
+    for lvl in range(level - 1, 0, -1):
+        coeff = np.where(depth == lvl, (1.0 + delta) / np.maximum(sigma, 1.0),
+                         0.0)
+        delta = np.where(depth == lvl - 1, delta + sigma * (adj @ coeff),
+                         delta)
+    delta[sources, lanes] = 0.0
+    return depth, sigma, delta.sum(axis=1)
+
+
+def bc_phase(graph, part):
+    """Multi-stage Brandes BC (`repro_torch.core.multistage`) over 64
+    sources (numpy seed 0, among the vertices with out-edges) in batches
+    of 16 payload lanes.  `max_depth` is the largest finite BFS depth from
+    these sources (16-lane BFS runs on the main path's partition) plus
+    one, so no depth is cut.  The first batch runs with each of its combine calls
+    held against the plain version, and its depths (exactly), σ (within
+    BC_SIGMA_RTOL) and BC (within BC_RTOL) against `host_brandes`.  Then
+    `accumulate_bc` over the pipeline (what `betweenness_centrality` runs)
+    with the combine counts set to 0 just before and read just after:
+    every batch's wall and supersteps, and its first batch bitwise equal to
+    the held pass.  Returns the counts."""
+    from repro_torch.core import algorithms, multistage
+    from repro_torch.core.engine import GREEngine
+    from repro_torch.kernels import segment_combine as sc
+    t_phase = time.perf_counter()
+    V = graph.num_vertices
+    rng = np.random.default_rng(0)
+    sources = rng.choice(np.flatnonzero(graph.out_degree() >= 1),
+                         size=BC_SOURCES, replace=False)
+    eng = GREEngine(algorithms.bfs_program(BC_BATCH))
+    max_depth = 0
+    for lo in range(0, BC_SOURCES, BC_BATCH):
+        hops = eng.run(part, eng.init_state(
+            part, source=list(sources[lo:lo + BC_BATCH])), 10_000).vertex_data
+        max_depth = max(max_depth, int(hops[torch.isfinite(hops)].max()) + 1)
+    del hops
+    t0 = time.perf_counter()
+    run = multistage._make_bc_batch(graph, max_depth, BC_BATCH,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    log(f"bc max_depth={max_depth} sources={BC_SOURCES} batch={BC_BATCH} "
+        f"partitions_s={time.perf_counter() - t0:.3f}")
+    first = sources[:BC_BATCH]
+    box = []
+    held = hold_block("bc batch 0", lambda: box.append(run(first)))
+    bc0 = box.pop().sum(dim=1).double().cpu().numpy()
+    depth = run.depth.double().cpu().numpy()
+    sigma = run.sigma.double().cpu().numpy()
+    t0 = time.perf_counter()
+    want_depth, want_sigma, want_bc = host_brandes(graph, first)
+    host_s = time.perf_counter() - t0
+    if not np.array_equal(depth, want_depth):
+        bad = np.argwhere(depth != want_depth)
+        raise AssertionError(f"bc depths: {len(bad)} entries differ, e.g. "
+                             f"{bad[:3].tolist()}")
+    sig_err = np.abs(sigma - want_sigma)
+    bc_err = np.abs(bc0 - want_bc)
+    if not (sig_err <= BC_SIGMA_RTOL * want_sigma).all():
+        raise AssertionError(f"bc sigma off by more than rtol "
+                             f"{BC_SIGMA_RTOL}: {sig_err.max()}")
+    if not (bc_err <= BC_RTOL * want_bc).all():
+        raise AssertionError(f"bc off by more than rtol {BC_RTOL}: "
+                             f"{bc_err.max()}")
+    pos_s, pos_b = want_sigma > 0, want_bc > 0
+    log("bc_check", json.dumps({
+        "batch": 0, "depth_max": float(want_depth[np.isfinite(
+            want_depth)].max()),
+        "sigma_max": float(want_sigma.max()),
+        "sigma_max_rel_err": float((sig_err[pos_s] / want_sigma[pos_s]
+                                    ).max()),
+        "bc_max": float(want_bc.max()),
+        "bc_max_rel_err": float((bc_err[pos_b] / want_bc[pos_b]).max()),
+        "host_brandes_s": host_s, "held": held}))
+    batches = []
+
+    def timed_batch(srcs):
+        out, ms = timed(lambda: run(srcs))
+        batches.append({"batch": len(batches), "wall_ms": ms,
+                        "forward_supersteps": run.supersteps[0],
+                        "backward_supersteps": run.supersteps[1]})
+        if len(batches) == 1:
+            batches[0]["equals_held_pass"] = bool(np.array_equal(
+                out.sum(dim=1).double().cpu().numpy(), bc0))
+        log("bc_batch", json.dumps(batches[-1]))
+        return out
+    torch.cuda.reset_peak_memory_stats()
+    sc.reset_launches()
+    t0 = time.perf_counter()
+    bc = multistage.accumulate_bc(timed_batch, sources, BC_BATCH, V)
+    total_s = time.perf_counter() - t0
+    launches = dict(sc.LAUNCHES)
+    log(f"bc_s={total_s:.3f} launches={json.dumps(launches)} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    if not batches[0]["equals_held_pass"]:
+        raise AssertionError("bc: the first batch differs from its held "
+                             "pass")
+    if not (bc.shape == (V,) and np.isfinite(bc).all() and (bc >= 0).all()
+            and bc.max() > 0):
+        raise AssertionError("bc: the scores are not finite, non-negative "
+                             "and non-zero")
+    if launches["dense"] <= 0:      # `auto` may keep every scan dense
+        raise AssertionError(f"bc launched no dense-route combine: "
+                             f"{launches}")
+    del run
+    torch.cuda.empty_cache()
+    log(f"bc_phase_s={time.perf_counter() - t_phase:.3f}")
+    return launches
+
+
+# --------------------------------------------------------- embedding_bag
+EMB_ROWS, EMB_DIM = 10_000_000, 16  # autoint's largest table
+EMB_BAGS = 4096
+EMB_REPLACES = "src/repro/kernels/ops.py:64"
+
+
+def embedding_phase(reps):
+    """`kernels.ops.embedding_bag` on a `[10_000_000, 16]` f32 table (CUDA
+    generator seed 0) with 4,096 sorted bags of 1-64 ids and per-id weights
+    (numpy seed 0): one counted call (the combine counts set to 0 just
+    before and read just after), its combine call held against the plain
+    version, the whole function against the plain version in float64
+    within SUM_RTOL, then times.  Returns the kernels-line record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_combine as sc
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    table = torch.rand((EMB_ROWS, EMB_DIM), generator=gen, device="cuda")
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(1, 65, EMB_BAGS)
+    n = int(sizes.sum())
+    ids = torch.from_numpy(rng.integers(0, EMB_ROWS, n).astype(np.int32)
+                           ).cuda()
+    w = torch.from_numpy(rng.random(n).astype(np.float32)).cuda()
+    bags = torch.from_numpy(np.repeat(np.arange(EMB_BAGS), sizes).astype(
+        np.int32)).cuda()
+
+    def call():
+        return ops.embedding_bag(table, ids, bags, EMB_BAGS, weights=w)
+    torch.cuda.synchronize()
+    sc.reset_launches()
+    out = call()
+    torch.cuda.synchronize()
+    launches = dict(sc.LAUNCHES)
+    if launches["dense"] != 1:
+        raise AssertionError(f"embedding_bag: {launches}")
+    held = hold_block("embedding_bag", call)
+    exact = torch.zeros((EMB_BAGS, EMB_DIM), dtype=torch.float64,
+                        device="cuda").index_add_(
+        0, bags.long(), table.index_select(0, ids).double()
+        * w.double()[:, None])
+    err = (out.double() - exact).abs()
+    if not (err <= SUM_RTOL * exact.abs()).all():
+        raise AssertionError(f"embedding_bag off by more than rtol "
+                             f"{SUM_RTOL}: {float(err.max())}")
+
+    def plain():
+        rows = table.index_select(0, ids) * w[:, None]
+        return sc.segment_combine_plain(rows, bags, EMB_BAGS, "sum")
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)[:-1]])
+                               .astype(np.int32)).cuda()
+    moved = n * EMB_DIM * 4 + 3 * n * 4 + EMB_BAGS * EMB_DIM * 4
+    rec = {"name": "embedding_bag", "route": "cuda",
+           "source": KERNEL_SOURCE, "replaces": EMB_REPLACES,
+           "launches": launches["dense"],
+           "max_abs_err": float(err.max()),
+           "ms": cuda_ms(call, reps), "plain_ms": cuda_ms(plain, reps),
+           "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": cuda_ms(lambda: F.embedding_bag(
+               ids, table, offsets, mode="sum", per_sample_weights=w), reps)}
+    log("embedding_bag", json.dumps({**rec, "ids": n, "bags": EMB_BAGS,
+                                     "max_rel_err": float(
+                                         (err / exact.abs()).max()),
+                                     "held": held}))
+    del table
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ----------------------------------------------------- incremental phase
@@ -1381,29 +1759,28 @@ DIST_HOLD_STEPS = 3
 
 
 @contextlib.contextmanager
-def recorded_combines():
-    """Record `(route, inputs)` of every combine-wrapper call
-    (`repro_torch.kernels.ops`) made inside the block; the calls still
-    launch their kernels."""
+def recorded_combines(on_call):
+    """Pass `(route, inputs)` of every combine-wrapper call
+    (`repro_torch.kernels.ops`) made inside the block to `on_call`, right
+    after the call returns; the calls still launch their kernels."""
     from repro_torch.kernels import ops
-    calls = []
     dense, tile = ops.segment_combine, ops.tile_segment_combine
 
     def dense_rec(msgs, dst, num_segments, op="sum", seg_ptr=None):
-        calls.append(("dense", {"msgs": msgs, "dst": dst, "op": op,
-                                "num_segments": num_segments,
-                                "seg_ptr": seg_ptr}))
-        return dense(msgs, dst, num_segments, op, seg_ptr)
+        out = dense(msgs, dst, num_segments, op, seg_ptr)
+        on_call("dense", {"msgs": msgs, "dst": dst, "op": op,
+                          "num_segments": num_segments, "seg_ptr": seg_ptr})
+        return out
 
     def tile_rec(msgs, dst, num_segments, op="sum", valid=None):
-        calls.append(("tile", {"msgs": msgs, "dst": dst, "op": op,
-                               "num_segments": num_segments,
-                               "valid": valid}))
-        return tile(msgs, dst, num_segments, op, valid)
+        out = tile(msgs, dst, num_segments, op, valid)
+        on_call("tile", {"msgs": msgs, "dst": dst, "op": op,
+                         "num_segments": num_segments, "valid": valid})
+        return out
 
     ops.segment_combine, ops.tile_segment_combine = dense_rec, tile_rec
     try:
-        yield calls
+        yield
     finally:
         ops.segment_combine, ops.tile_segment_combine = dense, tile
 
@@ -1434,27 +1811,31 @@ def hold_recorded(name, route, args):
 
 
 # the largest error of every combine-wrapper call held on the path's own
-# inputs (`hold_block`), by route: the kernels line reports it
+# inputs (`hold_block`), by route, and the (route, op, width) of the held
+# calls: the kernels line reports both
 HELD_ERRS = {"dense": 0.0, "tile": 0.0}
+HELD_WIDTHS = set()
 
 
 def hold_block(name, fn):
-    """Run `fn()` with its combine-wrapper calls recorded, then hold each
-    call on its own inputs against the plain version (`hold_recorded`):
-    min/max bitwise, sums within SUM_RTOL of the float64 sum.  Returns the
-    calls held by `route:op:D<lanes>:<segments>`; the errors go to
-    HELD_ERRS."""
-    with recorded_combines() as calls:
-        fn()
+    """Run `fn()`, holding each of its combine-wrapper calls on its own
+    inputs against the plain version (`hold_recorded`) as the call returns
+    (so a call's inputs are freed with its caller's): min/max bitwise, sums
+    within SUM_RTOL of the float64 sum.  Returns the calls held by
+    `route:op:D<lanes>:<segments>`; the errors go to HELD_ERRS."""
     seen = {}
-    for i, (route, args) in enumerate(calls):
-        e = hold_recorded(f"{name} call {i}", route, args)
+
+    def hold(route, args):
+        e = hold_recorded(f"{name} call {sum(seen.values())}", route, args)
         HELD_ERRS[route] = max(HELD_ERRS[route], e["max_abs_err"])
         m = args["msgs"]
         d = int(np.prod(m.shape[1:])) if m.dim() > 1 else 1
+        HELD_WIDTHS.add((route, args["op"], d))
         key = f"{route}:{args['op']}:D{d}:{args['num_segments']}"
         seen[key] = seen.get(key, 0) + 1
-    del calls
+
+    with recorded_combines(hold):
+        fn()
     torch.cuda.synchronize()
     return seen
 
@@ -1490,6 +1871,44 @@ def dist_hold_phase(inputs, source):
             raise AssertionError(f"dist {name} {exchange}: no tile-route "
                                  "call to hold")
     log(f"dist_calls_held={held} max_abs_err={json.dumps(HELD_ERRS)}")
+
+
+def dist_tuned_phase(inputs, ref, source, plan, cache_path):
+    """The tuning phase's SSSP winner stored with `phases="pipelined"`
+    under the k = 8 agent graph's key: `DistGREEngine(plan="auto-tuned")`
+    must adopt it and select the pipelined exchange, and its SSSP must
+    equal the default (agent) engine's and the oracle bitwise."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.dist_engine import DistGREEngine, original_order
+    from repro_torch.tuning import PlanCache, plan_cache_key
+    ag, topos, _ = inputs["directed"]
+    prog = algorithms.sssp_program()
+    key = plan_cache_key(agent_graph=ag, program=prog, mesh_size=ag.k)
+    PlanCache(cache_path).store(key, dataclasses.replace(
+        plan, phases="pipelined"))
+    eng = DistGREEngine(prog, ag.k, plan="auto-tuned", plan_cache=cache_path)
+    st = eng.init_state(ag, source=source)
+    if eng.exchange != "pipelined" or eng.plan.phases != "pipelined":
+        raise AssertionError(f"dist auto-tuned: exchange {eng.exchange}, "
+                             f"plan {eng.plan}")
+    default = DistGREEngine(prog, ag.k)
+    dst0 = default.init_state(ag, source=source)
+    runs = {}
+    for name, e, topo, s0 in (("auto-tuned", eng, topos["tiles"], st),
+                              ("default", default, topos["sync"], dst0)):
+        e.make_run(ag, 10_000)(topo, s0)               # untimed
+        out, ms = timed(lambda: e.make_run(ag, 10_000)(topo, s0))
+        runs[name] = (original_order(ag, out.vertex_data), out.step, ms)
+    if not np.array_equal(runs["auto-tuned"][0], runs["default"][0]):
+        raise AssertionError("dist auto-tuned SSSP != the default engine's")
+    assert_exact("dist auto-tuned sssp",
+                 torch.from_numpy(runs["auto-tuned"][0]), ref["sssp"])
+    log("dist_tuned", json.dumps({
+        "key": key, "exchange": eng.exchange,
+        "plan": plan_label(eng.plan), "local_frontier_cap":
+        eng.local.frontier_cap,
+        **{f"{n}_{f}": v for n, r in runs.items()
+           for f, v in (("supersteps", r[1]), ("wall_ms", r[2]))}}))
 
 
 # ------------------------------------- distributed incremental and serving
@@ -1976,12 +2395,13 @@ def main() -> int:
     # the distributed phase's host ingress runs beside the phases before it
     ingress = start_dist_ingress(args.scale, DIST_K)
     try:
-        return run_phases(args, ingress)
+        with tempfile.TemporaryDirectory() as tmp:   # the plan caches'
+            return run_phases(args, ingress, Path(tmp))
     finally:
         stop_dist_ingress(ingress)
 
 
-def run_phases(args, ingress) -> int:
+def run_phases(args, ingress, cache_dir) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import segment_combine as sc
 
@@ -2028,6 +2448,11 @@ def run_phases(args, ingress) -> int:
     log("main_path", json.dumps(runs))
     del multi, single0
     torch.cuda.empty_cache()
+    # plan autotuning, multi-stage BC and embedding_bag
+    sssp_plan, tune_launches = tuning_phase(graph, part, source, ref,
+                                            cache_dir)
+    bc_launches = bc_phase(graph, part)
+    emb = embedding_phase(args.reps)
     # incremental re-convergence and graph serving on the single shard
     _, delta, sssp_cold = incremental_phase(graph, ugraph, part, upart,
                                             source)
@@ -2038,6 +2463,8 @@ def run_phases(args, ingress) -> int:
     single_steps = {r["program"]: r["supersteps"] for r in runs}
     inputs = dist_inputs(ingress)
     dist_phase(inputs, ref, source, single_steps)
+    dist_tuned_phase(inputs, ref, source, sssp_plan,
+                     cache_dir / "dist.json")
     dist_incremental_phase(inputs, delta, source, sssp_cold)
     dist_serving_phase(inputs, stream, old_bfs)
     log(f"held_max_abs_err={json.dumps(HELD_ERRS)}")
@@ -2048,6 +2475,7 @@ def run_phases(args, ingress) -> int:
     attn_launches = lm_serving_phase()
 
     kernels = []
+    paths = {"tuning": tune_launches, "bc": bc_launches}
     for name, route, case in (
             ("segment_combine_dense", "dense", "dense_D1_sum"),
             ("segment_combine_tile", "tile", "tile_D1_min"),
@@ -2057,12 +2485,17 @@ def run_phases(args, ingress) -> int:
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES["dense" if route == "dense" else "tile"],
             "launches": launches[route],
+            "path_launches": {p: n[route] for p, n in paths.items()},
             "max_abs_err": max([r["max_abs_err"] for r in records
                                 if r["route"] == route]
                                + [HELD_ERRS.get(route, 0.0)]),
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": "bytes",
-            "library_ms": rec["library_ms"]})
+            "library_ms": rec["library_ms"],
+            "held_widths": sorted(f"{op}:D{d}" for r, op, d in HELD_WIDTHS
+                                  if r == ("dense" if route == "dense"
+                                           else "tile"))})
+    kernels.append(emb)
     rec = attn[0]                      # smollm-135m's prefill shape
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,

@@ -123,14 +123,22 @@ def _edge_part(src, dst, mask, props, indptr, eidx, max_deg, num_slots, k,
 
 class DistGREEngine:
     """Runs a VertexProgram over an AgentGraph of `k` shards, stacked on one
-    device (CUDA unless `device="cpu"`)."""
+    device (CUDA unless `device="cpu"`).
+
+    `plan=SuperstepPlan(...)` adopts a composed mode now (`adopt_plan`);
+    `plan="auto-tuned"` asks the tuned-plan cache at `plan_cache` (as
+    `GREEngine` does), keyed by the agent graph's fingerprint, the program
+    and `mesh_size` = k, the first time an agent graph is in hand
+    (`device_topology`, `init_state`, `make_superstep`, `make_run`); a
+    miss keeps the arguments' knobs."""
 
     EXCHANGES = ("agent", "dense", "null", "pipelined", "async")
 
     def __init__(self, program: VertexProgram, k: int,
                  exchange: str = "agent", overlap: bool = False,
                  frontier: str = "auto", frontier_cap: Optional[int] = None,
-                 staleness: int = 2, device="cuda"):
+                 staleness: int = 2, device="cuda", plan=None,
+                 plan_cache=None):
         if exchange not in self.EXCHANGES:
             raise ValueError(f"exchange must be one of {self.EXCHANGES}, "
                              f"got {exchange!r}")
@@ -155,6 +163,58 @@ class DistGREEngine:
         self.local = GREEngine(
             program, frontier=frontier,
             frontier_cap=None if frontier_cap is None else k * frontier_cap)
+        self._plan_cache = plan_cache
+        self._auto_plan_pending = False
+        if plan is None:
+            pass
+        elif plan == "auto-tuned":
+            self._auto_plan_pending = True
+        else:
+            self.adopt_plan(plan)
+
+    def adopt_plan(self, plan) -> None:
+        """Take a composed SuperstepPlan for every shard: the frontier
+        stage lands on the local engine (its `frontier_cap` a shard's, so
+        the stacked engine takes k times it) and the phase shape selects
+        the exchange: "pipelined" the split-tile pipelined exchange,
+        "async" the k-deep ring (monotone programs only; refuses
+        otherwise, so a cached plan cannot bring staleness to a sum
+        monoid), "sync" demotes either back to the sync agent exchange
+        (and drops `overlap`, which runs the pipelined shape here).  The
+        dense and null baselines are left alone: a plan tunes the
+        Agent-Graph protocol."""
+        if plan.phases == "async":
+            _check_async_eligible(self.program)
+        self.local.adopt_plan(plan)
+        self.frontier_cap = plan.frontier_cap
+        if plan.frontier_cap is not None:
+            self.local.frontier_cap = self.k * plan.frontier_cap
+        if plan.phases == "pipelined":
+            self.exchange = "pipelined"
+        elif plan.phases == "async":
+            self.exchange = "async"
+            self.staleness = plan.staleness
+        else:
+            if self.exchange in ("pipelined", "async"):
+                self.exchange = "agent"
+            self.overlap = False
+
+    def _resolve_auto_plan(self, ag: AgentGraph) -> None:
+        """`plan="auto-tuned"` against the plan cache (see
+        `GREEngine._consult_plan_cache`).  The key folds in the shard
+        count, the agent graph's remote-destination edge fraction and its
+        partitioner: the facets a single-shard tuning run cannot see.  It
+        has no frontier-density facet (the histogram is a shard's)."""
+        self._auto_plan_pending = False
+        from repro_torch.tuning import PlanCache, plan_cache_key
+        cache = self._plan_cache
+        if not isinstance(cache, PlanCache):
+            cache = PlanCache(cache)
+        plan = cache.lookup(plan_cache_key(agent_graph=ag,
+                                           program=self.program,
+                                           mesh_size=self.k))
+        if plan is not None:
+            self.adopt_plan(plan)
 
     @property
     def plan(self):
@@ -172,6 +232,8 @@ class DistGREEngine:
         if ag.k != self.k:
             raise ValueError(f"the agent graph has k={ag.k} shards, this "
                              f"engine k={self.k}")
+        if self._auto_plan_pending:
+            self._resolve_auto_plan(ag)
 
     # ------------------------------------------------------ backend selection
     def make_exchange(self, topo: ShardTopology):
@@ -480,13 +542,13 @@ class DistGREEngine:
         `exchange="async"` cannot serve ticks: its ring holds remote
         partials for up to `staleness` supersteps, and dropping them at a
         tick boundary would lose messages outright."""
+        self._check(ag)
         if self.exchange == "async":
             raise ValueError(
                 "exchange='async' cannot drive the serving tick: the "
                 "staleness ring carries un-flushed remote partials across "
                 "supersteps, and a per-tick merge would drop them. Use "
                 "exchange='agent' or 'pipelined' for serving.")
-        self._check(ag)
 
         def tick(topo: ShardTopology, state: EngineState) -> EngineState:
             backend = self.make_exchange(topo)

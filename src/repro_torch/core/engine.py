@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.exchange import NULL_EXCHANGE
-from repro_torch.core.plan import SuperstepPlan, execute_plan, execute_superstep
+from repro_torch.core.plan import (XLA_KERNEL, SuperstepPlan, execute_plan,
+                                   execute_superstep)
 from repro_torch.core.vertex_program import VertexProgram, segment_combine
 from repro_torch.graph.structures import (DEFAULT_BUCKET_BOUNDS,
                                           DeltaReport, csr_layout,
@@ -383,13 +384,23 @@ class GREEngine:
 
     Engines in `dense_frontier` mode (iterative programs like PageRank,
     where every vertex stays active) always take the dense path, unmasked.
+
+    `plan` replaces the knob-by-knob arguments with one `SuperstepPlan`
+    (`adopt_plan`), or, as `plan="auto-tuned"`, asks the tuned-plan cache
+    (`repro_torch.tuning.PlanCache` at `plan_cache`, else its default
+    location) the first time a partition is in hand (`init_state`): a hit
+    adopts the stored plan without running a probe, a miss keeps the
+    defaults.  `bucket_bounds` records the degree-bucket ladder an adopted
+    plan was tuned against (None: the default); callers rebuild a matching
+    partition with `DevicePartition.from_graph(bucket_bounds=...)`.
     """
 
     FRONTIERS = ("auto", "dense", "compact", "flat")
 
     def __init__(self, program: VertexProgram,
                  dense_frontier: Optional[bool] = None,
-                 frontier: str = "auto", frontier_cap: Optional[int] = None):
+                 frontier: str = "auto", frontier_cap: Optional[int] = None,
+                 plan=None, plan_cache=None):
         if frontier not in self.FRONTIERS:
             raise ValueError(f"frontier must be one of {self.FRONTIERS}, "
                              f"got {frontier!r}")
@@ -402,7 +413,80 @@ class GREEngine:
         # contribute nothing.
         self.dense_frontier = (dense_frontier if dense_frontier is not None
                                else not program.halts)
+        self.kernel = XLA_KERNEL    # carried for plan JSON, selects nothing
+        self.bucket_bounds = None
         self.frontier_hist = None   # set by calibrate_frontier_cap
+        self._plan_cache = plan_cache
+        self._auto_plan_pending = False
+        # the last consulted cache key and its frontier-histogram facet:
+        # `refresh_plan` re-keys against these after a graph mutation
+        self._plan_key = None
+        self._plan_hist = None
+        if plan is None:
+            pass
+        elif plan == "auto-tuned":
+            self._auto_plan_pending = True
+        else:
+            self.adopt_plan(plan)
+
+    def adopt_plan(self, plan: SuperstepPlan) -> None:
+        """Take a composed plan's stages as this engine's knobs (the
+        inverse of `make_plan`)."""
+        if plan.strategy not in self.FRONTIERS:
+            raise ValueError(f"plan strategy must be one of "
+                             f"{self.FRONTIERS}, got {plan.strategy!r}")
+        self.frontier = plan.strategy
+        self.frontier_cap = plan.frontier_cap
+        self.dense_frontier = plan.dense_frontier
+        self.kernel = plan.kernel
+        self.bucket_bounds = plan.bucket_bounds
+
+    def _plan_cache_lookup(self, key: str) -> Optional[SuperstepPlan]:
+        from repro_torch.tuning import PlanCache
+        cache = self._plan_cache
+        if not isinstance(cache, PlanCache):
+            cache = PlanCache(cache)
+        return cache.lookup(key)
+
+    def _consult_plan_cache(self, part: DevicePartition,
+                            state: EngineState) -> None:
+        """`plan="auto-tuned"`: probe the live frontier histogram (the
+        fingerprint's density facet, as `tune()` keys its plans), look the
+        partition's key up in the plan cache, adopt a hit; a miss keeps
+        the engine's defaults."""
+        self._auto_plan_pending = False
+        from repro_torch.tuning import plan_cache_key
+        hist = self.probe_frontier_hist(part, state)
+        key = plan_cache_key(part=part, program=self.program, mesh_size=1,
+                             frontier_hist=hist)
+        self._plan_key, self._plan_hist = key, hist
+        plan = self._plan_cache_lookup(key)
+        if plan is not None:
+            self.adopt_plan(plan)
+
+    def refresh_plan(self, part: DevicePartition) -> bool:
+        """Re-key a consulted tuned plan after a graph mutation.
+
+        The fingerprint quantizes its facets (log2 edge counts, skew
+        bins), so a small `apply_edge_delta` is absorbed: same key, the
+        adopted plan stands.  A large delta shifts a bin: the cache is
+        consulted under the new key (hit = adopt, miss = keep the current
+        knobs) and the new key becomes current.  Returns True when the key
+        changed.  A no-op unless this engine consulted the cache
+        (`plan="auto-tuned"`).
+        """
+        if self._plan_key is None:
+            return False
+        from repro_torch.tuning import plan_cache_key
+        key = plan_cache_key(part=part, program=self.program, mesh_size=1,
+                             frontier_hist=self._plan_hist)
+        if key == self._plan_key:
+            return False
+        self._plan_key = key
+        plan = self._plan_cache_lookup(key)
+        if plan is not None:
+            self.adopt_plan(plan)
+        return True
 
     def make_plan(self, phases: str = "sync",
                   staleness: int = 0) -> SuperstepPlan:
@@ -411,7 +495,8 @@ class GREEngine:
         return SuperstepPlan(strategy=self.frontier,
                              frontier_cap=self.frontier_cap,
                              dense_frontier=self.dense_frontier,
-                             phases=phases, staleness=staleness)
+                             phases=phases, staleness=staleness,
+                             kernel=self.kernel)
 
     def calibrate_frontier_cap(self, part: DevicePartition,
                                state: EngineState, probe_steps: int = 2
@@ -495,7 +580,12 @@ class GREEngine:
             raise ValueError("lane_tracking needs a multi-source (sequence) "
                              "`source` and a program with `lane_activates` "
                              "(payload_shape=(D,))")
-        return EngineState(vertex_data, scatter_data, active, 0, lane_active)
+        state = EngineState(vertex_data, scatter_data, active, 0, lane_active)
+        if self._auto_plan_pending:
+            # plan="auto-tuned": the key's frontier-density facet needs the
+            # seeded state
+            self._consult_plan_cache(part, state)
+        return state
 
     # ------------------------------------------------------------ incremental
     def warm_start_state(self, part: DevicePartition, prev_state: EngineState,
@@ -564,13 +654,15 @@ class GREEngine:
         is bitwise-equal to a cold `run` on the mutated graph for halting
         min-monoid programs; iterative programs re-converge to the
         tolerance they always carry.  Supersteps and edge scans follow the
-        perturbation, not the graph.  (The JAX package also re-keys a
-        tuned plan here, `refresh_plan`; the port has no tuned plans yet.)
+        perturbation, not the graph.  A tuned plan is re-keyed against the
+        mutated partition (`refresh_plan`) before the run.
         """
-        new_part, report = part.apply_edge_delta(delta)
+        new_part, report = part.apply_edge_delta(
+            delta, bucket_bounds=self.bucket_bounds)
         state = self.warm_start_state(new_part, prev_state, report,
                                       source=source,
                                       lane_tracking=lane_tracking)
+        self.refresh_plan(new_part)
         out = self.run(new_part, state, max_steps)
         return new_part, out, report
 

@@ -254,6 +254,37 @@ def bucketed_scatter_combine(program: "VertexProgram",
     return functools.reduce(p.monoid.op, partials)
 
 
+def bucketed_tile_occupancy(part: "DevicePartition", active: torch.Tensor,
+                            caps: Sequence[int],
+                            num_segments: Optional[int] = None,
+                            block_e: int = 256, block_v: int = 256) -> tuple:
+    """Measured occupancy of the bucketed tiles for a live frontier.
+
+    Replays the bucketed gather for `active` (each bucket's `[cap_b,
+    max_deg_b]` tile) and returns ``(visited, total)`` summed over buckets:
+    `visited` counts the valid lanes (those routed to a segment below
+    `num_segments`), `total` the tile's lanes.  The JAX package counts
+    (dst block, edge block) pairs of its per-superstep block table here;
+    the port has no block table (its tile route compacts the valid lanes,
+    `repro_torch.kernels.segment_combine`), so the analogue is valid lanes
+    over tile lanes.  `block_e` and `block_v` are the JAX signature's and
+    unused.  Diagnostic only.
+    """
+    nseg = num_segments or part.num_slots
+    visited = total = 0
+    for b, (cap_b, max_deg_b) in enumerate(zip(caps, part.bucket_max_deg)):
+        if cap_b <= 0 or max_deg_b <= 0:
+            continue
+        mask_b = active & (part.bucket_id == b)
+        frontier = torch.nonzero_static(mask_b, size=cap_b,
+                                        fill_value=part.num_slots).squeeze(1)
+        eid, valid = gather_frontier_edge_tile(part, frontier, cap_b,
+                                               max_deg_b)
+        visited += int((valid & (part.dst[eid] < nseg)).sum())
+        total += valid.numel()
+    return visited, total
+
+
 def frontier_scatter_combine(program: "VertexProgram",
                              part: "DevicePartition", state: "EngineState",
                              num_segments: int, plan: "FrontierPlan",

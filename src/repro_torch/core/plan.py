@@ -8,7 +8,10 @@ capacity split — `resolve_frontier`) with the exchange phase shape: `sync`
 the next superstep) or `async` (a `staleness`-deep ring flushed once per
 window; `repro_torch.core.exchange`).  The combine kernel is not a plan
 stage here: the route follows the tensors' device
-(`repro_torch.kernels.ops`).
+(`repro_torch.kernels.ops`).  A plan still carries the JAX package's
+`KernelPlan`, and `to_json`/`from_json` write and read the same JSON, so
+plans round-trip through a plan cache (`repro_torch.tuning`) written by
+either package; on the port the kernel stage selects nothing.
 
 `execute_plan` is the BSP loop, an eager Python loop with the shape of the
 JAX package's `lax.while_loop`: the first phase runs before the loop under
@@ -28,6 +31,21 @@ if TYPE_CHECKING:  # pragma: no cover - typing only, avoids a cycle
     from repro_torch.core.engine import DevicePartition, EngineState, GREEngine
 
 PHASES = ("sync", "pipelined", "async")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """The JAX package's combine-kernel stage (XLA segment ops, or the
+    Pallas tile combine with or without its on-device block table), kept
+    so that plans written by either package compare and serialise alike.
+    The port has one route per device (`repro_torch.kernels.ops`), so these
+    fields select nothing here."""
+
+    use_pallas: bool = False
+    dynamic_table: bool = True
+
+
+XLA_KERNEL = KernelPlan(use_pallas=False)
 
 
 class FrontierPlan(NamedTuple):
@@ -78,13 +96,22 @@ class SuperstepPlan:
     """One engine mode: frontier strategy request and phase shape.
 
     `staleness` is the async ring depth k (collectives once per k
-    supersteps), 0 for the synchronous shapes.
+    supersteps), 0 for the synchronous shapes.  `kernel` is carried for
+    the JAX package's plans and selects nothing (`KernelPlan`).
+
+    `bucket_bounds` is ingress metadata, not a run-time knob: the degree
+    binning is fixed when a partition is built, so a plan with bounds says
+    "tuned against a partition binned with these bounds"; callers rebuild
+    a matching partition with `DevicePartition.from_graph(...,
+    bucket_bounds=...)`.  None means the default ladder.
     """
 
     strategy: str = "auto"
     frontier_cap: Optional[int] = None
     dense_frontier: bool = False
     phases: str = "sync"
+    kernel: KernelPlan = XLA_KERNEL
+    bucket_bounds: Optional[tuple] = None
     staleness: int = 0
 
     def __post_init__(self):
@@ -96,6 +123,54 @@ class SuperstepPlan:
         if self.phases != "async" and self.staleness != 0:
             raise ValueError(f"staleness={self.staleness} is only "
                              "meaningful with phases='async'")
+        if self.bucket_bounds is not None:
+            # a hashable int tuple (JSON round-trips lists)
+            object.__setattr__(self, "bucket_bounds",
+                               tuple(int(b) for b in self.bucket_bounds))
+
+    def to_json(self) -> dict:
+        """Plain-JSON form for the plan cache (`repro_torch.tuning.cache`),
+        field for field the JAX package's."""
+        return {
+            "strategy": self.strategy,
+            "frontier_cap": self.frontier_cap,
+            "dense_frontier": self.dense_frontier,
+            "phases": self.phases,
+            "kernel": {"use_pallas": self.kernel.use_pallas,
+                       "dynamic_table": self.kernel.dynamic_table},
+            "bucket_bounds": (None if self.bucket_bounds is None
+                              else list(self.bucket_bounds)),
+            "staleness": self.staleness,
+        }
+
+    @classmethod
+    def from_json(cls, data: dict) -> "SuperstepPlan":
+        """Inverse of `to_json`.  Unknown fields, of the plan or of its
+        kernel, are rejected: an entry written by a later schema must fail
+        loudly rather than run with some of its knobs dropped."""
+        known = {"strategy", "frontier_cap", "dense_frontier", "phases",
+                 "kernel", "bucket_bounds", "staleness"}
+        unknown = set(data) - known
+        if unknown:
+            raise ValueError(f"SuperstepPlan.from_json: unknown field(s) "
+                             f"{sorted(unknown)}")
+        kdata = dict(data.get("kernel") or {})
+        kunknown = set(kdata) - {"use_pallas", "dynamic_table"}
+        if kunknown:
+            raise ValueError(f"SuperstepPlan.from_json: unknown kernel "
+                             f"field(s) {sorted(kunknown)}")
+        kernel = KernelPlan(use_pallas=bool(kdata.get("use_pallas", False)),
+                            dynamic_table=bool(kdata.get("dynamic_table",
+                                                         True)))
+        cap = data.get("frontier_cap")
+        bounds = data.get("bucket_bounds")
+        return cls(strategy=data.get("strategy", "auto"),
+                   frontier_cap=None if cap is None else int(cap),
+                   dense_frontier=bool(data.get("dense_frontier", False)),
+                   phases=data.get("phases", "sync"),
+                   kernel=kernel,
+                   bucket_bounds=None if bounds is None else tuple(bounds),
+                   staleness=int(data.get("staleness", 0)))
 
     def frontier(self, part: "DevicePartition") -> FrontierPlan:
         return resolve_frontier(self.strategy, self.frontier_cap,

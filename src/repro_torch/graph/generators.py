@@ -96,6 +96,19 @@ def ring_graph(n: int, weights: bool = False) -> Graph:
     return Graph(n, src, dst, props)
 
 
+def grid_graph(rows: int, cols: int) -> Graph:
+    """4-neighbor grid, directed both ways."""
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    s, d = [], []
+    s.append(idx[:, :-1].ravel())
+    d.append(idx[:, 1:].ravel())
+    s.append(idx[:-1, :].ravel())
+    d.append(idx[1:, :].ravel())
+    src = np.concatenate(s + d)
+    dst = np.concatenate(d + s)
+    return Graph(rows * cols, src, dst)
+
+
 def erdos_renyi_edges(n: int, m: int, seed: int = 0,
                       weights: bool = False) -> Graph:
     rng = np.random.default_rng(seed)

@@ -61,6 +61,27 @@ def tile_segment_combine(msgs: torch.Tensor, dst: torch.Tensor,
     return _unflat(out, msgs, num_segments)
 
 
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  bag_ids: torch.Tensor, num_bags: int,
+                  weights: Optional[torch.Tensor] = None,
+                  seg_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """EmbeddingBag: gather `table[ids]`, scale each row by its optional
+    per-id weight, then sum the rows of each bag into `[num_bags, d]`.
+
+    The gather stays a plain `index_select` (the JAX package leaves it to
+    XLA outside its kernel); the bag sum is the combine kernel's dense
+    route, so `bag_ids` (int32) must be sorted (ascending, one bag's ids
+    together).  `seg_ptr` is the bags' row pointer; without it the row
+    pointer is built from `bag_ids` (`segment_row_pointer`).
+    """
+    rows = table.index_select(0, ids)
+    if weights is not None:
+        rows = rows * weights[:, None]
+    if seg_ptr is None:
+        seg_ptr = sc.segment_row_pointer(bag_ids, num_bags)
+    return segment_combine(rows, bag_ids, num_bags, "sum", seg_ptr=seg_ptr)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """GQA attention forward: q `[B, Sq, Kv, G, H]`, k/v `[B, Sk, Kv, H]`

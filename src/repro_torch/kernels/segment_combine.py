@@ -45,6 +45,8 @@ IDENTITY = {"sum": 0.0, "min": math.inf, "max": -math.inf}
 _REDUCE = {"sum": "sum", "min": "amin", "max": "amax"}
 _OP_CODE = {"sum": 0, "min": 1, "max": 2}
 _I32_MAX = 2**31 - 1
+# The most lanes a tile may hold: the kernels index lanes with int32.
+MAX_LANES = _I32_MAX
 
 # Kernel launches per route; reset by callers that count a run.
 LAUNCHES = {"dense": 0, "tile": 0, "compact": 0}
@@ -130,7 +132,7 @@ def _compact_problem(dst, num_segments, valid):
     if not dst.is_contiguous():
         return "dst must be contiguous"
     n = dst.shape[0]
-    if n > _I32_MAX:
+    if n > MAX_LANES:
         return "more than 2**31 - 1 lanes"
     if not 0 <= num_segments <= _I32_MAX:
         return f"bad num_segments {num_segments}"

@@ -128,8 +128,10 @@ class GraphQueryBatcher:
         self.default_budget = default_budget
         self.clock = clock
         self._dist = isinstance(engine, DistGREEngine)
-        self._clamp_sum_monoid_plan()
         self._set_target(target)
+        # after `_set_target`: a plan="auto-tuned" cache hit there may have
+        # adopted a compacted plan
+        self._clamp_sum_monoid_plan()
         self.queue: deque = deque()
         self.finished: List[Query] = []
         self._lane_query: List[Optional[Query]] = [None] * self.num_lanes
@@ -380,7 +382,12 @@ class GraphQueryBatcher:
             target = self._part
             for delta in deltas:
                 target, _ = target.apply_edge_delta(delta)
+            # a mutated partition re-keys the tuned plan before it runs
+            self.engine.refresh_plan(target)
         self._set_target(target)
+        # a re-keyed cache hit can adopt a compacted plan for the mutated
+        # graph; sum-monoid lanes stay dense
+        self._clamp_sum_monoid_plan()
 
     def _local_src(self, source: int):
         """Original vertex id → admission operand: the master slot (single

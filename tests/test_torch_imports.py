@@ -77,6 +77,27 @@ def test_incremental_and_serving_modules_stand_alone(module):
     assert out.strip() == "[]"
 
 
+SLICE7_MODULES = ("repro_torch.tuning", "repro_torch.tuning.cache",
+                  "repro_torch.tuning.evaluator",
+                  "repro_torch.tuning.fingerprint",
+                  "repro_torch.tuning.search", "repro_torch.tuning.space",
+                  "repro_torch.core.multistage")
+
+
+@pytest.mark.parametrize("module", SLICE7_MODULES)
+def test_tuning_and_multistage_modules_stand_alone(module):
+    """The plan autotuner and multi-stage BC import on their own, with
+    neither `jax` nor `repro` loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
 def test_port_sources_never_import_jax_or_repro():
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|,|$)",
                          re.M)
@@ -113,6 +134,19 @@ def test_cuda_entry_points_raise_without_a_card():
     new, _ = part.apply_edge_delta(EdgeDelta(rem_src=g.src[:1],
                                              rem_dst=g.dst[:1]))
     assert new.device.type == "cpu" and new.src.device.type == "cpu"
+    # the tuner's probes, multi-stage BC and its pipeline
+    from repro_torch.core import multistage
+    from repro_torch.tuning import ProbeEvaluator, tune
+    prog = algorithms.bfs_program()
+    calls = (lambda: tune(prog, g, cache=None),
+             lambda: ProbeEvaluator(prog, g).partition(),
+             lambda: multistage.betweenness_centrality(g),
+             lambda: multistage._make_bc_batch(g, 4, 2))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert ProbeEvaluator(prog, g, device="cpu").partition().device.type \
+        == "cpu"
 
 
 def test_lm_entry_points_raise_without_a_card():
