@@ -21,8 +21,10 @@
    segment count that is no multiple of a share, a ragged tile and a tile
    with no valid lane) at D in {1, 3, 32, 64} and each op, on positive
    messages.  Min/max must be bitwise equal to the plain version, and two
-   launches bitwise equal to each other.  Sums must agree to rtol 1e-5
-   with the plain version evaluated in float64 on the same values: the
+   launches bitwise equal to each other.  Sums must agree with the plain
+   version evaluated in float64 on the same values to within 1e-5 of the
+   float64 sum of the terms' magnitudes (the sum itself for positive
+   messages; held GNN messages and gradients carry signs): the
    float32 plain version sums with atomics in an arbitrary order, and on
    hub segments (in-degree ~1e5) its own rounding drift
    (~eps·sqrt(in-degree)) is of the order of that tolerance; its distance
@@ -140,6 +142,32 @@
    last PPR answer (a recycled lane) a fresh PPR batcher's, bitwise; p50
    and p99 latency, queries a second, ticks, supersteps, host reads a tick
    and the combine counts are printed.
+3f. GNN training, right after the `embedding_bag` phase of step 3a
+   (`repro_torch.models.gnn`, `repro_torch.optim.AdamW`, K1 behind
+   autograd): gcn-cora (2 layers, d_hidden 16, sym norm, 7 classes) and
+   gin-tu (5 layers, d_hidden 64, learnable eps, 2 classes) over the whole
+   graph with `[V, 100]` planted features (ogb_products' d_feat; labels
+   and features planted as in examples/gnn_fullbatch.py): a first step
+   with every combine call, forward and backward, held against the plain
+   version as it returns (the float64 reference a block of columns at a
+   time), then 5 timed steps of forward, `gnn_loss`, backward and AdamW
+   (`gnn_step` lines: ms, peak memory, K1 launches forward and backward
+   beside the expected `n_layers` and `n_layers - 1`; no tile-route or
+   compaction launch), then the first step's gradients again from the
+   same parameters, bitwise equal (no float atomic in the backward).  At
+   scale 16 both models' loss and gradients through the kernels against
+   the same functions on the plain versions in float64 on the card, within
+   1e-4 (`gnn_f64_check`).  Then GCN on `NeighborSampler` minibatches
+   (1024 seeds, fanout (15, 10), a `[V, 602]` feature table on the card;
+   3 steps: host sample seconds, device ms) and one GIN step on 128
+   molecule graphs of 30 nodes and 64 edges, mean-pooled through K1.
+   After step 3e, on the directed graph's k = 8 sync topology: one GCN
+   gradient pass through `propagate_sharded` from the single-card run's
+   initial parameters, its loss within 1e-5 and its gradients within 1e-4
+   (of each leaf's largest) of the single card's (`gnn_dist` line).  The
+   `embedding_bag` phase also runs its backward: the table gradient (K1
+   over the ids-sorted order) and the weights', held, against float64,
+   and timed against the plain version and `F.embedding_bag`'s backward.
 3e. After step 3b, on its stacked shards: SSSP under agent re-converges
    through `DistGREEngine.rerun_incremental` from step 3c's delta on the
    directed graph's agent graph built with head-room in its pads (by the
@@ -202,8 +230,9 @@
 6. Prints the `kernels` JSON line (the combine kernel's two routes, the
    compaction, `embedding_bag` and the attention kernel; the combine
    entries also carry their launches in step 3a's tuned runs and BC pass
-   and the (op, width) of every call held on the path's own inputs), the
-   nvidia-smi line, and last
+   the GNN steps' forward and backward launches, and the (op, width) of
+   every call held on the path's own inputs; `embedding_bag` its
+   backward's launches and times), the nvidia-smi line, and last
    `{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero; without a card it
@@ -237,6 +266,7 @@ REPLACES = {"dense": "src/repro/kernels/segment_combine.py:232",
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attention.py:70"
 SUM_RTOL = 1e-5                    # f32 sum vs the plain version in f64
+HOLD_F64_BYTES = 4 << 30           # the float64 messages of a held sum
 F32_ATTN_TOL = 2e-5                # atol and rtol, the JAX package's
 BF16_RTOL = 2.0 ** -6              # two bf16 ulps of the element ...
 BF16_ROW_ATOL = 3e-2               # ... plus 3% of its row's RMS
@@ -287,7 +317,9 @@ def route_bound_ms(lanes: int, e: int, d: int, v: int) -> float:
 def hold_combine(name, op, first, second, msgs, dst, num_segments):
     """Hold two launches' outputs against each other (bitwise) and against
     the plain version on (msgs, dst), in any order of dst: min/max
-    bitwise, sums within SUM_RTOL of the float64 sum.  Returns the errors."""
+    bitwise, sums within SUM_RTOL of the float64 sum of the messages'
+    magnitudes (of the sum itself where they are positive).  Returns the
+    errors."""
     from repro_torch.kernels import segment_combine as sc
     torch.cuda.synchronize()
     if not torch.equal(first, second):
@@ -300,19 +332,36 @@ def hold_combine(name, op, first, second, msgs, dst, num_segments):
         if not torch.equal(first, plain):
             raise AssertionError(f"{name}: {op} is not bitwise equal")
         return {"max_abs_err": 0.0, "max_rel_err": 0.0}
-    exact = sc.segment_combine_plain(msgs.double(), dst, num_segments, op)
-    err = (first.double() - exact).abs()
-    scale = exact.abs().clamp(min=1e-30)
-    worst = float((err - SUM_RTOL * exact.abs()).max()) if err.numel() else 0.0
+    if not first.numel():
+        return {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    # the float64 sum a block of columns at a time, so that its copy of
+    # the messages stays within HOLD_F64_BYTES at the GNN path's [E, 100]
+    first2 = first.reshape(first.shape[0], -1)
+    plain2 = plain.reshape(plain.shape[0], -1)
+    msgs2 = msgs.reshape(msgs.shape[0], first2.shape[1])
+    cols = max(1, HOLD_F64_BYTES // max(8 * msgs2.shape[0], 1))
+    worst = abs_err = rel_err = plain_rel = 0.0
+    for c in range(0, msgs2.shape[1], cols):
+        block = msgs2[:, c:c + cols].double()
+        exact = sc.segment_combine_plain(block, dst, num_segments, op)
+        # a float sum's error scales with the sum of its terms' magnitudes
+        # (|Σ m| for the graph path's positive messages; more where signed
+        # GNN messages cancel)
+        mag = sc.segment_combine_plain(block.abs_(), dst, num_segments, op)
+        del block
+        err = (first2[:, c:c + cols].double() - exact).abs()
+        scale = exact.abs().clamp(min=1e-30)
+        worst = max(worst, float((err - SUM_RTOL * mag).max()))
+        abs_err = max(abs_err, float(err.max()))
+        rel_err = max(rel_err, float((err / scale).max()))
+        plain_rel = max(plain_rel, float(
+            ((plain2[:, c:c + cols].double() - exact).abs() / scale).max()))
+        del exact, mag, err, scale
     if not (torch.isfinite(first).all() and worst <= 0.0):
         raise AssertionError(f"{name}: sum off by more than rtol "
                              f"{SUM_RTOL} (excess {worst})")
-    if not err.numel():
-        return {"max_abs_err": 0.0, "max_rel_err": 0.0}
-    return {"max_abs_err": float(err.max()),
-            "max_rel_err": float((err / scale).max()),
-            "plain_f32_max_rel_err": float(
-                ((plain.double() - exact).abs() / scale).max())}
+    return {"max_abs_err": abs_err, "max_rel_err": rel_err,
+            "plain_f32_max_rel_err": plain_rel}
 
 
 def check_case(name, route, op, msgs, dst, seg_ptr, num_segments, reps):
@@ -1036,6 +1085,7 @@ def embedding_phase(reps):
            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
            "library_ms": cuda_ms(lambda: F.embedding_bag(
                ids, table, offsets, mode="sum", per_sample_weights=w), reps)}
+    rec.update(embedding_backward(table, ids, bags, w, offsets, gen, reps))
     log("embedding_bag", json.dumps({**rec, "ids": n, "bags": EMB_BAGS,
                                      "max_rel_err": float(
                                          (err / exact.abs()).max()),
@@ -1043,6 +1093,449 @@ def embedding_phase(reps):
     del table
     torch.cuda.empty_cache()
     return rec
+
+
+def embedding_backward(table, ids, bags, w, offsets, gen, reps):
+    """The gradients of `kernels.ops.embedding_bag` at the same call: the
+    table's (the combine over the ids-sorted order, one launch) and the
+    per-id weights' (a row-wise dot product) for a `[4096, 16]` cotangent
+    (CUDA generator).  One counted backward (counts set to 0 just before,
+    read just after), its combine call held, both gradients against
+    float64 sums within SUM_RTOL, then the backward's time against the
+    plain version's (`segment_combine_plain` of the gradient rows by id)
+    and `torch.nn.functional.embedding_bag`'s backward.  Returns the
+    `backward_*` fields of the kernels-line record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_combine as sc
+    cot = torch.rand((EMB_BAGS, EMB_DIM), generator=gen, device="cuda")
+    tab = table.detach().requires_grad_(True)
+    wt = w.detach().requires_grad_(True)
+    out = ops.embedding_bag(tab, ids, bags, EMB_BAGS, weights=wt)
+    torch.cuda.synchronize()
+    sc.reset_launches()
+    g_tab, g_w = torch.autograd.grad(out, (tab, wt), cot, retain_graph=True)
+    torch.cuda.synchronize()
+    launches = dict(sc.LAUNCHES)
+    if launches != {"dense": 1, "tile": 0, "compact": 0}:
+        raise AssertionError(f"embedding_bag backward: {launches}")
+    held = hold_block("embedding_bag backward", lambda: torch.autograd.grad(
+        out, (tab, wt), cot, retain_graph=True))
+    rows64 = cot.double().index_select(0, bags.long())
+    exact = torch.zeros(table.shape, dtype=torch.float64,
+                        device="cuda").index_add_(
+        0, ids.long(), rows64 * w.double()[:, None])
+    err = (g_tab.double() - exact).abs()
+    exact_w = (rows64 * table.index_select(0, ids).double()).sum(1)
+    err_w = (g_w.double() - exact_w).abs()
+    if not ((err <= SUM_RTOL * exact.abs()).all()
+            and (err_w <= SUM_RTOL * exact_w.abs()).all()):
+        raise AssertionError(f"embedding_bag gradients off by more than "
+                             f"rtol {SUM_RTOL}: table {float(err.max())}, "
+                             f"weights {float(err_w.max())}")
+    del exact, rows64
+
+    def plain():
+        grad_rows = cot.index_select(0, bags.long()) * w[:, None]
+        return sc.segment_combine_plain(grad_rows, ids, EMB_ROWS, "sum")
+    lib_out = F.embedding_bag(ids, tab, offsets, mode="sum",
+                              per_sample_weights=wt)
+    n = ids.shape[0]
+    # read: the cotangent, bag ids, ids, weights, the gathered table rows;
+    # written: the whole table gradient and the weight gradient
+    moved = (EMB_BAGS * EMB_DIM * 4 + 3 * n * 4 + n * EMB_DIM * 4
+             + EMB_ROWS * EMB_DIM * 4 + n * 4)
+    fields = {
+        "backward_launches": launches["dense"],
+        "backward_max_abs_err": max(float(err.max()), float(err_w.max())),
+        "backward_ms": cuda_ms(lambda: torch.autograd.grad(
+            out, (tab, wt), cot, retain_graph=True), reps),
+        "backward_plain_ms": cuda_ms(plain, reps),
+        "backward_bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+        "backward_library_ms": cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (tab, wt), cot, retain_graph=True), reps),
+        "backward_held": held}
+    del out, lib_out, g_tab, g_w, err
+    return fields
+
+
+# ------------------------------------------------------------ GNN phase
+GNN_D_FEAT = 100        # ogb_products' d_feat (GNN_SHAPES)
+GNN_TIMED_STEPS = 5
+GNN_LR = 1e-2           # launch/cells.py's full-graph AdamW
+GNN_LOSS_RTOL = 1e-5    # k = 8 loss against the single card's
+GNN_GRAD_TOL = 1e-4     # of the largest |gradient| of each leaf
+GNN_F64_TOL = 1e-4      # f32 kernels against the plain versions in f64
+GNN_F64_SCALE = 16
+MB_SEEDS, MB_FANOUT, MB_D_FEAT, MB_STEPS = 1024, (15, 10), 602, 3
+MOL_GRAPHS, MOL_NODES, MOL_EDGES, MOL_D_FEAT = 128, 30, 64, 16
+
+
+def planted_labels(num_nodes, n_classes, seed):
+    """examples/gnn_fullbatch.py's planting: labels uniform over the
+    classes and a train mask of about half the vertices (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, n_classes, num_nodes), rng.random(num_nodes) < 0.5
+
+
+def planted_features(labels, d_feat, seed):
+    """`[V, d_feat]` float32 features on the card: N(0, 0.1²) from a CUDA
+    generator, plus 1 at column `label % d_feat` (the weak signal of
+    examples/gnn_fullbatch.py)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v = labels.shape[0]
+    feats = torch.randn((v, d_feat), generator=gen, device="cuda") * 0.1
+    lab = torch.from_numpy(labels).cuda()
+    feats[torch.arange(v, device="cuda"), lab % d_feat] += 1.0
+    return feats
+
+
+def full_graph_batch(graph, cfg, seed=0, device="cuda"):
+    """The whole graph as one `GraphBatch` of planted features, labels and
+    train mask; GCN's sym norm for the gcn family."""
+    from repro_torch.models import gnn
+    labels, train = planted_labels(graph.num_vertices, cfg.n_classes, seed)
+    src = torch.from_numpy(graph.src.astype(np.int32)).to(device)
+    dst = torch.from_numpy(graph.dst.astype(np.int32)).to(device)
+    mask = torch.ones(graph.num_edges, dtype=torch.bool, device=device)
+    norm = (gnn.compute_gcn_edge_norm(src, dst, mask, graph.num_vertices)
+            if cfg.family == "gcn" else None)
+    feats = planted_features(labels, GNN_D_FEAT, seed).to(device)
+    return gnn.GraphBatch.build(feats, src, dst, mask, labels, train,
+                                edge_norm=norm, device=device)
+
+
+def clone_tree(tree, dtype=None):
+    """A parameter tree's leaves copied (optionally cast) as fresh leaves
+    that require gradients."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v, dtype) for v in tree]
+    if tree is None:
+        return None
+    return tree.detach().to(dtype or tree.dtype).clone().requires_grad_(True)
+
+
+def gnn_grads(params, batch, cfg, prop_fn=None):
+    """`gnn_loss` and its backward from `params` (gradients left in each
+    leaf's `.grad`): `(loss, [gradient copies], forward launches, total
+    launches)`, the combine counts set to 0 just before."""
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.models import gnn
+    leaves = gnn.parameters(params)
+    for p in leaves:
+        p.grad = None
+    sc.reset_launches()
+    loss = gnn.gnn_loss(params, batch, cfg, prop_fn)
+    fwd = dict(sc.LAUNCHES)
+    loss.backward()
+    total = dict(sc.LAUNCHES)
+    return (loss.detach(), [p.grad.detach().clone() for p in leaves], fwd,
+            total)
+
+
+def expected_launches(cfg, pooled=False):
+    """K1 launches of one training step: one forward combine a layer (and
+    the mean-pool's), one backward combine over the src order for each
+    layer whose input needs a gradient (all but the first)."""
+    return cfg.n_layers + int(pooled), cfg.n_layers - 1
+
+
+def check_launches(name, cfg, fwd, total, pooled=False):
+    want_f, want_b = expected_launches(cfg, pooled)
+    got_f, got_b = fwd["dense"], total["dense"] - fwd["dense"]
+    if ((got_f, got_b) != (want_f, want_b) or total["tile"]
+            or total["compact"]):
+        raise AssertionError(f"{name}: K1 forward/backward launches "
+                             f"{got_f}/{got_b}, expected {want_f}/{want_b}; "
+                             f"counts {total}")
+    return {"launches_forward": got_f, "launches_backward": got_b,
+            "expected_forward": want_f, "expected_backward": want_b}
+
+
+def train_steps(name, params, opt, batch, cfg, steps, counted, pooled=False):
+    """`steps` timed training steps (forward, `gnn_loss`, backward, AdamW):
+    one `gnn_step` line each (wall ms to a sync, peak memory, K1 launches
+    forward and backward beside the expected); adds the launches to
+    `counted`."""
+    losses = []
+    for i in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, fwd, total = gnn_grads(params, batch, cfg)
+        opt.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"run": name, "step": i, "loss": float(loss), "ms": ms,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               **check_launches(name, cfg, fwd, total, pooled)}
+        log("gnn_step", json.dumps(rec))
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"{name}: loss {rec['loss']}")
+        counted["forward"] += fwd["dense"]
+        counted["backward"] += total["dense"] - fwd["dense"]
+        losses.append(rec["loss"])
+    return losses
+
+
+def full_graph_run(graph, arch, counted):
+    """One config over the whole graph: the first step from the initial
+    parameters with every combine call (forward and backward) held, then
+    GNN_TIMED_STEPS timed steps, then the first step's gradients again
+    from the same parameters, which must be bitwise equal.  Returns the
+    initial parameters, the first loss and gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import gnn
+    from repro_torch.optim import AdamW
+    cfg = get_config(arch)[0]
+    t0 = time.perf_counter()
+    batch = full_graph_batch(graph, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = gnn.init_gnn(gen, cfg, GNN_D_FEAT, cfg.n_classes)
+    params0 = clone_tree(params)
+    opt = AdamW(gnn.parameters(params), lr=GNN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    box = []
+    held = hold_block(f"{arch} step 0",
+                      lambda: box.append(gnn_grads(params, batch, cfg)))
+    loss0, grads0, _, _ = box.pop()
+    peak0 = torch.cuda.max_memory_allocated()
+    opt.step()
+    torch.cuda.empty_cache()     # the holds' float64 blocks fragment the pool
+    losses = train_steps(arch, params, opt, batch, cfg, GNN_TIMED_STEPS,
+                         counted)
+    again, grads1, _, _ = gnn_grads(clone_tree(params0), batch, cfg)
+    same = bool(torch.equal(again, loss0)) and all(
+        torch.equal(a, b) for a, b in zip(grads0, grads1))
+    log("gnn_run", json.dumps({
+        "run": arch, "V": graph.num_vertices, "E": graph.num_edges,
+        "d_feat": GNN_D_FEAT, "layers": cfg.n_layers,
+        "d_hidden": cfg.d_hidden, "classes": cfg.n_classes,
+        "batch_build_s": build_s, "loss0": float(loss0),
+        "step0_held_max_memory_allocated": peak0, "held": held,
+        "losses": losses, "bitwise_equal_gradients": same}))
+    if not same:
+        raise AssertionError(f"{arch}: two gradient passes from the same "
+                             f"parameters and batch differ")
+    if not all(torch.isfinite(g).all() for g in grads0):
+        raise AssertionError(f"{arch}: non-finite gradients")
+    del batch, opt
+    torch.cuda.empty_cache()
+    return params0, loss0, grads0
+
+
+@contextlib.contextmanager
+def plain_combines():
+    """Inside the block the combine entry points run the plain versions on
+    every device (the kernels' own reference), so a CUDA tensor in float64
+    stays in float64 on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_combine as sc
+    dense, tile = ops._dense, ops._tile
+    ops._dense = (lambda msgs, dst, n, op, seg_ptr:
+                  sc.segment_combine_plain(msgs, dst, n, op))
+    ops._tile = (lambda msgs, dst, n, op, valid:
+                 sc.tile_segment_combine_plain(msgs, dst, n, op, valid))
+    try:
+        yield
+    finally:
+        ops._dense, ops._tile = dense, tile
+
+
+def leaf_errors(got, want):
+    """Per leaf: the largest |got - want| over the largest |want|."""
+    return [float((g.double() - w).abs().max()
+                  / w.abs().max().clamp(min=1e-30))
+            for g, w in zip(got, want)]
+
+
+def gnn_f64_check(scale):
+    """At R-MAT `scale`, each config's loss and gradients through the
+    kernels in float32 against the same functions on the plain versions in
+    float64 on the card (`plain_combines`, which must launch no kernel):
+    the loss within GNN_F64_TOL relative, each gradient within
+    GNN_F64_TOL of its largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.graph.generators import rmat_edges
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.models import gnn
+    g = rmat_edges(scale, 16, seed=0, weights=True).dedup()
+    out = {}
+    for arch in ("gcn-cora", "gin-tu"):
+        cfg = get_config(arch)[0]
+        batch = full_graph_batch(g, cfg)
+        params = gnn.init_gnn(torch.Generator(device="cuda").manual_seed(1),
+                              cfg, GNN_D_FEAT, cfg.n_classes)
+        loss, grads, _, _ = gnn_grads(params, batch, cfg)
+        b64 = dataclasses.replace(
+            batch, node_feats=batch.node_feats.double(),
+            edge_norm=(None if batch.edge_norm is None
+                       else batch.edge_norm.double()))
+        with plain_combines():
+            loss64, grads64, _, total = gnn_grads(
+                clone_tree(params, torch.float64), b64, cfg)
+        if any(total.values()):
+            raise AssertionError(f"the float64 reference launched {total}")
+        loss_err = abs(float(loss) - float(loss64)) / abs(float(loss64))
+        errs = leaf_errors(grads, grads64)
+        out[arch] = {"loss": float(loss), "loss64": float(loss64),
+                     "loss_rel_err": loss_err, "grad_max_err": max(errs)}
+        if loss_err > GNN_F64_TOL or max(errs) > GNN_F64_TOL:
+            raise AssertionError(f"{arch} against float64: {out[arch]}, "
+                                 f"per leaf {errs}")
+    log("gnn_f64_check", json.dumps({"scale": scale, "V": g.num_vertices,
+                                     "E": g.num_edges, **out}))
+
+
+def gnn_minibatch_run(graph, counted):
+    """GCN on `NeighborSampler` minibatches of the graph: minibatch_lg's
+    1024 seeds, fanout (15, 10) and d_feat 602 (a `[V, 602]` planted
+    feature table on the card).  MB_STEPS steps, each: host sample
+    seconds, then the device ms (CUDA events) of the subgraph's batch
+    (gather of its feature rows, routes, norm) and its training step; loss
+    on the seed nodes."""
+    from repro_torch.configs import get_config
+    from repro_torch.graph.sampler import NeighborSampler
+    from repro_torch.models import gnn
+    from repro_torch.optim import AdamW
+    cfg = get_config("gcn-cora")[0]
+    labels, _ = planted_labels(graph.num_vertices, cfg.n_classes, 2)
+    table = planted_features(labels, MB_D_FEAT, 2)
+    labels_t = torch.from_numpy(labels).cuda()
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(graph, MB_FANOUT, seed=0)
+    csr_s = time.perf_counter() - t0
+    n_pad, e_pad = sampler.budget(MB_SEEDS)
+    params = gnn.init_gnn(torch.Generator(device="cuda").manual_seed(3), cfg,
+                          MB_D_FEAT, cfg.n_classes)
+    opt = AdamW(gnn.parameters(params), lr=1e-3)
+    for step in range(MB_STEPS):
+        t0 = time.perf_counter()
+        sub = sampler.sample(MB_SEEDS, step)
+        host_s = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        ids = torch.from_numpy(sub.node_ids).cuda().clamp(min=0)
+        src = torch.from_numpy(sub.src).cuda()
+        dst = torch.from_numpy(sub.dst).cuda()
+        mask = torch.from_numpy(sub.edge_mask).cuda()
+        batch = gnn.GraphBatch.build(
+            table.index_select(0, ids), src, dst, mask,
+            labels_t.index_select(0, ids), sub.seed_mask,
+            edge_norm=gnn.compute_gcn_edge_norm(src, dst, mask, n_pad))
+        loss, _, fwd, total = gnn_grads(params, batch, cfg)
+        opt.step()
+        end.record()
+        end.synchronize()
+        rec = {"run": "minibatch", "step": step, "loss": float(loss),
+               "host_sample_s": host_s, "device_ms": start.elapsed_time(end),
+               "nodes": sub.num_nodes, "edges": sub.num_edges,
+               "node_budget": n_pad, "edge_budget": e_pad,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               **check_launches("minibatch", cfg, fwd, total)}
+        log("gnn_step", json.dumps(rec))
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"minibatch: loss {rec['loss']}")
+        counted["forward"] += fwd["dense"]
+        counted["backward"] += total["dense"] - fwd["dense"]
+    log(f"gnn_minibatch csr_s={csr_s:.3f} table_bytes="
+        f"{table.numel() * table.element_size()}")
+    del table, batch
+    torch.cuda.empty_cache()
+
+
+def gnn_molecule_run(counted):
+    """One GIN step on the molecule shape: 128 graphs of 30 nodes and 64
+    random edges each (numpy seed 0), 16 features, graph labels in {0, 1},
+    mean-pooled by graph through the combine.  A first step with every
+    combine call held, then one timed, counted step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import gnn
+    from repro_torch.optim import AdamW
+    cfg = get_config("gin-tu")[0]
+    rng = np.random.default_rng(0)
+    off = np.repeat(np.arange(MOL_GRAPHS) * MOL_NODES, MOL_EDGES)
+    src = rng.integers(0, MOL_NODES, MOL_GRAPHS * MOL_EDGES) + off
+    dst = rng.integers(0, MOL_NODES, MOL_GRAPHS * MOL_EDGES) + off
+    v = MOL_GRAPHS * MOL_NODES
+    batch = gnn.GraphBatch.build(
+        rng.normal(size=(v, MOL_D_FEAT)).astype(np.float32), src, dst,
+        np.ones(src.shape[0], bool), rng.integers(0, 2, MOL_GRAPHS),
+        np.ones(v, bool), graph_ids=np.repeat(np.arange(MOL_GRAPHS),
+                                              MOL_NODES),
+        num_graphs=MOL_GRAPHS)
+    params = gnn.init_gnn(torch.Generator(device="cuda").manual_seed(4), cfg,
+                          MOL_D_FEAT, cfg.n_classes)
+    opt = AdamW(gnn.parameters(params), lr=1e-3)
+    held = hold_block("molecule step 0",
+                      lambda: gnn_grads(params, batch, cfg))
+    opt.step()
+    train_steps("molecule", params, opt, batch, cfg, 1, counted, pooled=True)
+    log("gnn_molecule", json.dumps({"graphs": MOL_GRAPHS, "nodes": v,
+                                    "edges": int(src.shape[0]),
+                                    "held": held}))
+
+
+def gnn_phase(graph, f64_scale):
+    """GCN and GIN training over the whole graph, the float64 check at
+    `f64_scale`, the minibatch and the molecule runs.  Returns the timed
+    steps' K1 launches (forward, backward) and GCN's initial parameters,
+    first loss and gradients (the k = 8 run's reference)."""
+    t0 = time.perf_counter()
+    counted = {"forward": 0, "backward": 0}
+    gcn_ref = full_graph_run(graph, "gcn-cora", counted)
+    full_graph_run(graph, "gin-tu", counted)
+    gnn_f64_check(f64_scale)
+    gnn_minibatch_run(graph, counted)
+    gnn_molecule_run(counted)
+    log(f"gnn_phase_s={time.perf_counter() - t0:.3f} "
+        f"launches={json.dumps(counted)}")
+    return counted, gcn_ref
+
+
+def gnn_dist_run(graph, inputs, gcn_ref):
+    """One GCN gradient pass through `propagate_sharded` over the k = 8
+    stacked shards of the directed graph's agent graph (sync topology),
+    from GCN's initial parameters: its loss within GNN_LOSS_RTOL of the
+    single card's and every gradient within GNN_GRAD_TOL of the largest
+    magnitude of its leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.comm import StackedComm
+    from repro_torch.models import gnn
+    params0, loss0, grads0 = gcn_ref
+    cfg = get_config("gcn-cora")[0]
+    ag, topos, _ = inputs["directed"]
+    comm = StackedComm(ag.k)
+    t0 = time.perf_counter()
+    batch = full_graph_batch(graph, cfg)
+    stacked, prop_fn = gnn.shard_graph_batch(batch, ag, topos["sync"], comm)
+    del batch
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    (loss, grads, fwd, total), ms = timed(lambda: gnn_grads(
+        clone_tree(params0), stacked, cfg, prop_fn))
+    loss_err = abs(float(loss) - float(loss0)) / abs(float(loss0))
+    errs = leaf_errors(grads, [g.double() for g in grads0])
+    rec = {"k": ag.k, "loss": float(loss), "single_card_loss": float(loss0),
+           "loss_rel_err": loss_err, "grad_max_err": max(errs),
+           "layout_s": layout_s, "ms": ms,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches_forward": fwd["dense"],
+           "launches_backward": total["dense"] - fwd["dense"],
+           "values_moved": comm.values}
+    log("gnn_dist", json.dumps(rec))
+    if loss_err > GNN_LOSS_RTOL or max(errs) > GNN_GRAD_TOL:
+        raise AssertionError(f"k = {ag.k} GCN against the single card: "
+                             f"{rec}, per leaf {errs}")
+    del stacked, prop_fn
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------- incremental phase
@@ -1821,12 +2314,15 @@ def hold_block(name, fn):
     """Run `fn()`, holding each of its combine-wrapper calls on its own
     inputs against the plain version (`hold_recorded`) as the call returns
     (so a call's inputs are freed with its caller's): min/max bitwise, sums
-    within SUM_RTOL of the float64 sum.  Returns the calls held by
+    within SUM_RTOL of the float64 sum of the terms' magnitudes
+    (`hold_combine`).  Returns the calls held by
     `route:op:D<lanes>:<segments>`; the errors go to HELD_ERRS."""
     seen = {}
 
     def hold(route, args):
-        e = hold_recorded(f"{name} call {sum(seen.values())}", route, args)
+        with torch.no_grad():    # a held call may come from a backward
+            e = hold_recorded(f"{name} call {sum(seen.values())}", route,
+                              args)
         HELD_ERRS[route] = max(HELD_ERRS[route], e["max_abs_err"])
         m = args["msgs"]
         d = int(np.prod(m.shape[1:])) if m.dim() > 1 else 1
@@ -2453,6 +2949,8 @@ def run_phases(args, ingress, cache_dir) -> int:
                                             cache_dir)
     bc_launches = bc_phase(graph, part)
     emb = embedding_phase(args.reps)
+    # GNN training: full graph, the float64 check, minibatches, molecules
+    gnn_launches, gcn_ref = gnn_phase(graph, min(args.scale, GNN_F64_SCALE))
     # incremental re-convergence and graph serving on the single shard
     _, delta, sssp_cold = incremental_phase(graph, ugraph, part, upart,
                                             source)
@@ -2467,6 +2965,12 @@ def run_phases(args, ingress, cache_dir) -> int:
                      cache_dir / "dist.json")
     dist_incremental_phase(inputs, delta, source, sssp_cold)
     dist_serving_phase(inputs, stream, old_bfs)
+    # GCN through propagate_sharded: only the directed sync topology stays
+    inputs.pop("undirected")
+    inputs.pop("slack", None)
+    inputs["directed"][1].pop("tiles")
+    torch.cuda.empty_cache()
+    gnn_dist_run(graph, inputs, gcn_ref)
     log(f"held_max_abs_err={json.dumps(HELD_ERRS)}")
     del graph, ugraph, ref, inputs, old_bfs, sssp_cold
     torch.cuda.empty_cache()
@@ -2475,7 +2979,9 @@ def run_phases(args, ingress, cache_dir) -> int:
     attn_launches = lm_serving_phase()
 
     kernels = []
-    paths = {"tuning": tune_launches, "bc": bc_launches}
+    paths = {"tuning": tune_launches, "bc": bc_launches,
+             **{f"gnn_{k}": {"dense": n, "tile": 0, "compact": 0}
+                for k, n in gnn_launches.items()}}
     for name, route, case in (
             ("segment_combine_dense", "dense", "dense_D1_sum"),
             ("segment_combine_tile", "tile", "tile_D1_min"),

@@ -1,9 +1,10 @@
-"""Workload configuration dataclasses of the port: the graph family and the
-dense LM family (the counterpart of `repro/configs/base.py`)."""
+"""Workload configuration dataclasses of the port: the graph family, the
+dense LM family and the GNN family (the counterpart of
+`repro/configs/base.py`)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -78,3 +79,47 @@ class LMConfig:
             ff = d * f * (3 if self.gated else 2)
         per_layer = attn + ff + 2 * d
         return self.n_layers * per_layer + 2 * v * d + d
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    """A GNN, with the fields of the JAX package's `GNNConfig`; the port
+    trains the gcn and gin families."""
+    name: str
+    family: str          # gcn | gin | dimenet | mace
+    n_layers: int
+    d_hidden: int
+    # family-specific knobs
+    aggregator: str = "sum"
+    norm: str = "none"            # gcn: sym
+    eps_learnable: bool = False   # gin
+    n_bilinear: int = 8           # dimenet
+    n_spherical: int = 7
+    n_radial: int = 6
+    l_max: int = 2                # mace
+    correlation_order: int = 3
+    n_rbf: int = 8
+    d_out: int = 1
+    n_classes: int = 16
+    dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNShape:
+    name: str
+    kind: str            # full_graph | minibatch | molecule
+    n_nodes: int
+    n_edges: int
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    batch_graphs: int = 0
+
+
+GNN_SHAPES: Tuple[GNNShape, ...] = (
+    GNNShape("full_graph_sm", "full_graph", 2708, 10556, d_feat=1433),
+    GNNShape("minibatch_lg", "minibatch", 232965, 114615892, d_feat=602,
+             batch_nodes=1024, fanout=(15, 10)),
+    GNNShape("ogb_products", "full_graph", 2449029, 61859140, d_feat=100),
+    GNNShape("molecule", "molecule", 30, 64, batch_graphs=128),
+)

@@ -231,6 +231,37 @@ def ppr_push_program(num_sources: int, alpha: float = 0.15,
     )
 
 
+def gnn_aggregate_program(d_feat: int,
+                          edge_weighted: bool = False) -> VertexProgram:
+    """One-superstep neighborhood aggregation with feature-vector payloads.
+
+    The GNN layer propagation h' = A·h IS the Scatter-Combine primitive with
+    payload_shape = (D,): scatter the [slots, D] feature rows, ⊕ = sum at
+    the destinations (optionally edge-weighted, e.g. GCN's symmetric
+    normalization via the "edge_norm" edge property).  Running it through
+    the engine gives full-batch GNN aggregation the engine's combine kernel.
+    """
+
+    def scatter_msg(src_scatter, edge_norm):
+        if edge_norm is None:
+            return src_scatter
+        return src_scatter * edge_norm[:, None]
+
+    def apply_fn(vertex_data, combined, _aux):
+        return combined, combined, torch.zeros(
+            combined.shape[0], dtype=torch.bool, device=combined.device)
+
+    return VertexProgram(
+        name="gnn_aggregate", monoid=MONOIDS["sum"],
+        scatter_msg=scatter_msg, apply_fn=apply_fn,
+        init_vertex_data=lambda n, aux: _full((n, d_feat), 0.0, aux),
+        init_scatter_data=lambda n, aux: _full((n, d_feat), 0.0, aux),
+        init_active=lambda n, aux: _full((n,), True, aux, torch.bool),
+        halts=True, payload_shape=(d_feat,),
+        needs_edge_prop="edge_norm" if edge_weighted else None,
+    )
+
+
 def degree_program() -> VertexProgram:
     """In-degree via one superstep of sum-combine (sanity workload)."""
 

@@ -345,6 +345,31 @@ def match_removals(keys: np.ndarray, rem_keys: np.ndarray):
     return sel, dead
 
 
+@dataclasses.dataclass
+class CSR:
+    """Compressed sparse row adjacency: dst-sorted or src-sorted edge list."""
+
+    num_vertices: int
+    indptr: np.ndarray   # [V+1]
+    indices: np.ndarray  # [E] neighbor ids
+    edge_ids: np.ndarray  # [E] position of each CSR slot in the original COO
+
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.indices[self.indptr[v]:self.indptr[v + 1]]
+
+
+def coo_to_csr(src: np.ndarray, dst: np.ndarray, num_vertices: int,
+               by: str = "src") -> CSR:
+    """Build CSR sorted by `src` (out-adjacency) or `dst` (in-adjacency)."""
+    key, other = (src, dst) if by == "src" else (dst, src)
+    order = np.argsort(key, kind="stable")
+    counts = np.bincount(key, minlength=num_vertices)
+    indptr = np.zeros(num_vertices + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return CSR(num_vertices, indptr, other[order].astype(np.int64),
+               order.astype(np.int64))
+
+
 def pad_edges(src: np.ndarray, dst: np.ndarray, target: int,
               pad_vertex: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Pad COO edge arrays to a static length.

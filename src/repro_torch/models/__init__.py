@@ -1,1 +1,2 @@
-# Model definitions of the port: the dense decoder-only LM (transformer.py).
+# Model definitions of the port: the dense decoder-only LM (transformer.py)
+# and the GNNs (gnn.py: GCN, GIN, GAT and GraphSAGE layers).

@@ -1,1 +1,2 @@
-# Functional layers of the LM stack (plain tensors in, plain tensors out).
+# Functional layers of the port (plain tensors in, plain tensors out): the
+# LM stack's norms, FFN and attention, the MLP, and embeddings.

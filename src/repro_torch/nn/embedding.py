@@ -1,0 +1,47 @@
+"""Embedding lookup and EmbeddingBag (the counterpart of
+`repro/nn/embedding.py`).
+
+Both are a row gather and, for bags, the Scatter-Combine ⊕ = sum: the
+port's `kernels.ops.gather_rows` and `kernels.ops.embedding_bag`, whose
+gradients go through the combine kernel over the ids-sorted order, never
+through a float atomic.  `sharded_embedding_lookup` (a psum over the table
+axis) comes with the other-models slice and the communicator.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.segment_combine import segment_row_pointer
+
+
+def embedding_init(generator: torch.Generator, vocab: int, dim: int,
+                   dtype=torch.float32) -> torch.Tensor:
+    """N(0, 0.05²) rows drawn in float32 on the generator's device."""
+    return (torch.randn((vocab, dim), generator=generator,
+                        device=generator.device) * 0.05).to(dtype)
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`table[ids]` for ids of any shape: `[*ids.shape, dim]`."""
+    rows = ops.gather_rows(table, ids.reshape(-1))
+    return rows.reshape(tuple(ids.shape) + tuple(table.shape[1:]))
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  bag_ids: torch.Tensor, num_bags: int, mode: str = "sum",
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-hot bag reduce: ids [N] (flattened bag members), bag_ids [N]
+    (which bag each id belongs to, int32, sorted ascending), → [num_bags,
+    D].  `mode` "mean" divides each bag by its member count (at least 1)."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
+    seg_ptr = segment_row_pointer(bag_ids, num_bags)
+    out = ops.embedding_bag(table, ids, bag_ids, num_bags, weights=weights,
+                            seg_ptr=seg_ptr)
+    if mode == "mean":
+        cnt = (seg_ptr[1:] - seg_ptr[:-1]).to(table.dtype)
+        out = out / torch.clamp(cnt, min=1.0)[:, None]
+    return out

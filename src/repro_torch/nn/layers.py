@@ -35,6 +35,23 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma.to(dt)
 
 
+def mlp_init(generator: torch.Generator, dims, dtype=torch.float32):
+    """`[{"w": [a, b], "b": [b]}]` for consecutive `dims`: `dense_init`
+    weights drawn from `generator` in layer order, zero biases, on the
+    generator's device."""
+    return [{"w": dense_init(generator, a, b, dtype),
+             "b": torch.zeros((b,), dtype=dtype, device=generator.device)}
+            for a, b in zip(dims[:-1], dims[1:])]
+
+
+def mlp_apply(params, x, act=F.silu, final_act=False):
+    for i, p in enumerate(params):
+        x = x @ p["w"] + p["b"]
+        if i < len(params) - 1 or final_act:
+            x = act(x)
+    return x
+
+
 def squared_relu(x: torch.Tensor) -> torch.Tensor:
     """Nemotron-4's activation (arXiv:2402.16819): relu(x)**2."""
     r = F.relu(x)

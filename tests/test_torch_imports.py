@@ -98,6 +98,24 @@ def test_tuning_and_multistage_modules_stand_alone(module):
     assert out.strip() == "[]"
 
 
+SLICE8_MODULES = ("repro_torch.models.gnn", "repro_torch.graph.sampler",
+                  "repro_torch.nn.embedding", "repro_torch.optim.adamw",
+                  "repro_torch.configs.gcn_cora", "repro_torch.configs.gin_tu")
+
+
+def test_gnn_modules_stand_alone():
+    """The GNN slice (models, sampler, embedding, optimizer, configs)
+    imports with neither `jax` nor `repro` loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys, {', '.join(SLICE8_MODULES)}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
 def test_port_sources_never_import_jax_or_repro():
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|,|$)",
                          re.M)
@@ -186,3 +204,37 @@ def test_lm_entry_points_raise_without_a_card():
     assert ContinuousBatcher(params, cfg, 2, 8, device="cpu").B == 2
     with pytest.raises(ValueError, match="params lie on"):
         ContinuousBatcher(params, cfg, 2, 8, device="meta")
+
+
+def test_gnn_entry_points_raise_without_a_card():
+    """`init_gnn`, `params_from_numpy`, `GraphBatch.build` and
+    `GraphBatch.to` default to CUDA and refuse it without a card;
+    `device="cpu"` runs.  The configs not ported yet name their slice."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: CUDA is a valid request here")
+    from repro_torch.configs import get_config
+    from repro_torch.models import gnn
+    cfg = get_config("gcn-cora")[0]
+    params = gnn.init_gnn(torch.Generator(), cfg, 4, 3, device="cpu")
+    tree = {"layers": [{k: v.detach().numpy() for k, v in lp.items()}
+                       for lp in params["layers"]],
+            "out": params["out"].detach().numpy(),
+            "out_b": params["out_b"].detach().numpy()}
+    arrays = (np.zeros((3, 4), np.float32), np.array([0, 1]),
+              np.array([1, 2]), np.ones(2, bool), np.zeros(3, np.int64),
+              np.ones(3, bool))
+    batch = gnn.GraphBatch.build(*arrays, device="cpu")
+    calls = (lambda: gnn.init_gnn(torch.Generator(), cfg, 4, 3),
+             lambda: gnn.params_from_numpy(tree, cfg),
+             lambda: gnn.GraphBatch.build(*arrays),
+             lambda: batch.to("cuda"))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    back = gnn.params_from_numpy(tree, cfg, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(gnn.parameters(back),
+                                                 gnn.parameters(params)))
+    assert batch.to("cpu").routes.dst.tolist() == [1, 2]
+    for arch in ("dimenet", "mace", "autoint"):
+        with pytest.raises(KeyError, match="item 11"):
+            get_config(arch)

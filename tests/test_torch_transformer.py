@@ -64,7 +64,8 @@ def test_configs_match_the_jax_package():
         with pytest.raises(KeyError, match="MoE slice"):
             get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("gcn-cora")
+        get_config("no-such-arch")
+    assert get_config("gcn-cora")[1] == "gnn"     # the GNN slice's config
 
 
 def test_params_from_numpy_round_trip(model):

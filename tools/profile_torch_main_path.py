@@ -3,7 +3,7 @@
 
   python3 tools/profile_torch_main_path.py [--scale 22] [--src DIR]
                                           [--lm-only | --dist |
-                                           --incremental]
+                                           --incremental | --gnn]
 
 Graph path: builds the inputs of `chip_smoke.py` with its own `build_inputs`
 (Graph500 R-MAT a=0.57, b=c=0.19, edge factor 16, seed 0, weights; both
@@ -30,6 +30,10 @@ mutated partition, and four serving ticks of 8-lane BFS and PPR batchers
 "warm_start" (the host passes and their transfers), "frontier" (the frontier
 counts and their host read), "apply", "admit" and "fetch" (a finished
 lane's result) of the batcher.
+GNN training (`--gnn`, alone): `chip_smoke.py`'s whole-graph gcn-cora and
+gin-tu batches (`[V, 100]` planted features, the R-MAT graph at
+`--scale`), each profiled as its forward with `gnn_loss` and as a whole
+gradient pass (forward and backward); the backward is their difference.
 
 Each program runs once to warm up, then once under `torch.profiler`.  For
 each it prints one JSON line: the wall time of the traced run, the
@@ -331,6 +335,32 @@ def profile_incremental(scale: int) -> None:
             layers=True)
 
 
+def profile_gnn(scale: int) -> None:
+    from chip_smoke import GNN_D_FEAT, full_graph_batch
+    from repro_torch.configs import get_config
+    from repro_torch.graph.generators import rmat_edges
+    from repro_torch.models import gnn
+
+    graph = rmat_edges(scale, 16, seed=0, weights=True).dedup()
+    for arch in ("gcn-cora", "gin-tu"):
+        cfg = get_config(arch)[0]
+        batch = full_graph_batch(graph, cfg)
+        params = gnn.init_gnn(torch.Generator(device="cuda").manual_seed(1),
+                              cfg, GNN_D_FEAT, cfg.n_classes)
+
+        def forward():
+            gnn.gnn_loss(params, batch, cfg)
+
+        def forward_backward():
+            for p in gnn.parameters(params):
+                p.grad = None
+            gnn.gnn_loss(params, batch, cfg).backward()
+        profile(f"{arch}_forward", forward)
+        profile(f"{arch}_forward_backward", forward_backward)
+        del batch, params
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -343,6 +373,8 @@ def main() -> int:
                     help="profile the distributed path alone")
     ap.add_argument("--incremental", action="store_true",
                     help="profile a warm rerun and serving ticks alone")
+    ap.add_argument("--gnn", action="store_true",
+                    help="profile GCN and GIN gradient passes alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: needs an NVIDIA card", file=sys.stderr)
@@ -354,6 +386,8 @@ def main() -> int:
         profile_dist(args.scale)
     elif args.incremental:
         profile_incremental(args.scale)
+    elif args.gnn:
+        profile_gnn(args.scale)
     else:
         profile_lm()
         if not args.lm_only:
