@@ -4,7 +4,7 @@
   python3 chip_smoke.py [--scale 22] [--reps 10]
 
 1. Starts the distributed phase's host ingress in a child process (step
-   3b), prints the card's name and power limit and builds both CUDA
+   3b), prints the card's name and power limit and builds the three CUDA
    sources from `src/repro_torch/kernels/csrc/` with `nvcc` (sm_90a), one
    `nvcc` per source, all started together.
 2. Builds the Graph500 R-MAT graph (a=0.57, b=c=0.19, edge factor 16,
@@ -77,10 +77,23 @@
    at scale 22 its worst-case hub tile out-scans the dense path, so it
    stays dense).  Then `kernels.ops.embedding_bag` on
    autoint's largest table, `[10_000_000, 16]` f32, with 4,096 sorted bags
-   of 1-64 ids and per-id weights: one counted call, its combine call
-   held, the whole function within SUM_RTOL of the plain version in
-   float64, its time, bound and `torch.nn.functional.embedding_bag`'s time
-   (a yardstick only).
+   of 1-64 ids and per-id weights: one counted call (exactly one forward
+   launch of `csrc/embedding_bag.cu` and no combine launch), both of its
+   kernels held on its inputs (two launches bitwise equal, within SUM_RTOL
+   of the plain versions in float64), the scratch bytes the forward and
+   the backward allocate above their inputs and outputs (less than one
+   `[n, d]` buffer, and the backward less than a row pointer over the
+   table), its time, device time (profiler), bound and
+   `torch.nn.functional.embedding_bag`'s time (a yardstick only).  Then
+   the kernels' edge cases, each forward and backward held the same way at
+   d in {1, 3, 16, 64, 100, 128, 200}: empty bags between full ones and 100
+   trailing, one bag holding every id, one id at every position, ids 0 and
+   N - 1, no weights, no id at all, int64 ids, bags past num_bags.  Then,
+   information only, the forward at GCN's propagate shape on the scale-22
+   partition (ids its src, bags its dst, GCN's sym norm, a `[V, d]` table,
+   d = 16 and 100): held in float64 a few columns at a time, timed beside
+   today's route (`index_select`, scale, the combine kernel) and
+   `F.embedding_bag` (`embedding_bag_gcn` lines).
 3b. Distributed phase, after the single-shard partitions are freed: the
    same graph on k = 8 shards stacked on the card
    (`repro_torch.core.dist_engine`), placed by `partition_edges(method=
@@ -165,9 +178,11 @@
    gradient pass through `propagate_sharded` from the single-card run's
    initial parameters, its loss within 1e-5 and its gradients within 1e-4
    (of each leaf's largest) of the single card's (`gnn_dist` line).  The
-   `embedding_bag` phase also runs its backward: the table gradient (K1
-   over the ids-sorted order) and the weights', held, against float64,
-   and timed against the plain version and `F.embedding_bag`'s backward.
+   `embedding_bag` phase also runs its backward (one launch: a sort of
+   the ids, a memset, one walk of the sorted runs for the table and weight
+   gradients): both gradients against float64, timed (and with only the
+   weights asked for) against the plain version and `F.embedding_bag`'s
+   backward.
 3e. After step 3b, on its stacked shards: SSSP under agent re-converges
    through `DistGREEngine.rerun_incremental` from step 3c's delta on the
    directed graph's agent graph built with head-room in its pads (by the
@@ -232,8 +247,8 @@
    entries also carry their launches in step 3a's tuned runs and BC pass
    the GNN steps' forward and backward launches, and the (op, width) of
    every call held on the path's own inputs; `embedding_bag` its
-   backward's launches and times), the nvidia-smi line, and last
-   `{"ok": true, "device": {...}}`.
+   backward's launches and times, its edge cases held and its GCN-shaped
+   times), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero; without a card it
 exits non-zero before printing any result.
@@ -1028,19 +1043,123 @@ def bc_phase(graph, part):
 # --------------------------------------------------------- embedding_bag
 EMB_ROWS, EMB_DIM = 10_000_000, 16  # autoint's largest table
 EMB_BAGS = 4096
+EMB_SOURCE = "src/repro_torch/kernels/csrc/embedding_bag.cu"
 EMB_REPLACES = "src/repro/kernels/ops.py:64"
+EMB_EDGE_D = (1, 3, 16, 64, 100, 128, 200)   # 200: two column tiles
+EMB_GCN_D = (16, 100)
+
+
+def counted(fn):
+    """`fn()` with the embedding_bag and combine launch counts set to 0
+    just before and read just after: `(result, eb counts, combine
+    counts)`."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import segment_combine as sc
+    torch.cuda.synchronize()
+    eb.reset_launches()
+    sc.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(eb.LAUNCHES), dict(sc.LAUNCHES)
+
+
+def check_emb_launches(name, eb_counts, sc_counts, want):
+    if eb_counts != want or any(sc_counts.values()):
+        raise AssertionError(f"{name}: embedding_bag launches {eb_counts} "
+                             f"(want {want}), combine launches {sc_counts} "
+                             "(want none)")
+
+
+def extra_peak_bytes(fn, kept_bytes):
+    """Peak bytes `fn()` allocates above what was in use before it, less
+    the `kept_bytes(result)` it returns: its scratch."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - kept_bytes(out)
+    del out
+    return extra
+
+
+def device_ms(fn, reps):
+    """Device time of one `fn()`: every kernel and memset it runs, from
+    torch.profiler over `reps` calls after a warm-up call, in total and by
+    kernel name (ms a call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.replace("void ", "").split("(")[0][:60]
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not by:
+        raise AssertionError("the profiler recorded no device time")
+    return sum(by.values()) / reps, {k: v / reps for k, v in by.items()}
+
+
+def emb_bound_ms(n, distinct, d, num_bags, id_bytes=4, weighted=True):
+    """Least time of the forward: ids, bag ids and weights once, each
+    distinct table row once, the output once."""
+    moved = (n * (id_bytes + 4 + 4 * weighted) + distinct * d * 4
+             + num_bags * d * 4)
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def hold_embedding_bag(name, table, ids, bags, num_bags, w, cot):
+    """Both kernels on one input (`cot` the forward's cotangent), each
+    launched twice, bitwise equal, against the plain versions in float64:
+    within SUM_RTOL of the float64 result (positive inputs, so of the sum
+    of the terms' magnitudes).  Returns the largest errors."""
+    from repro_torch.kernels import embedding_bag as eb
+    need_w = w is not None
+    outs = [(eb.embedding_bag_forward_cuda(table, ids, bags, num_bags, w),
+             *eb.embedding_bag_backward_cuda(cot, table, ids, bags, num_bags,
+                                             w, True, need_w))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    w64 = None if w is None else w.double()
+    want = (eb.embedding_bag_forward_plain(table.double(), ids, bags,
+                                           num_bags, w64),
+            *eb.embedding_bag_backward_plain(cot.double(), table.double(),
+                                             ids, bags, num_bags, w64, True,
+                                             need_w))
+    errs = {}
+    for key, got, again, ref in zip(("forward", "table_grad", "weight_grad"),
+                                    outs[0], outs[1], want):
+        if ref is None:
+            continue
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {key}: two launches differ")
+        err = (got.double() - ref).abs()
+        if not (torch.isfinite(got).all()
+                and (err <= SUM_RTOL * ref.abs()).all()):
+            raise AssertionError(f"{name} {key}: off by more than rtol "
+                                 f"{SUM_RTOL}: {float(err.max())}")
+        errs[key] = float(err.max()) if err.numel() else 0.0
+    return errs
 
 
 def embedding_phase(reps):
     """`kernels.ops.embedding_bag` on a `[10_000_000, 16]` f32 table (CUDA
     generator seed 0) with 4,096 sorted bags of 1-64 ids and per-id weights
-    (numpy seed 0): one counted call (the combine counts set to 0 just
-    before and read just after), its combine call held against the plain
-    version, the whole function against the plain version in float64
-    within SUM_RTOL, then times.  Returns the kernels-line record."""
+    (numpy seed 0): one counted call (one forward launch, no combine
+    launch), both kernels held on its inputs (`hold_embedding_bag`), the
+    call itself against float64 within SUM_RTOL, its scratch bytes, then
+    times: the call's, its device time, the plain version's,
+    `F.embedding_bag`'s.  Returns the kernels-line record."""
     import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import ops
-    from repro_torch.kernels import segment_combine as sc
     gen = torch.Generator(device="cuda").manual_seed(0)
     table = torch.rand((EMB_ROWS, EMB_DIM), generator=gen, device="cuda")
     rng = np.random.default_rng(0)
@@ -1051,112 +1170,236 @@ def embedding_phase(reps):
     w = torch.from_numpy(rng.random(n).astype(np.float32)).cuda()
     bags = torch.from_numpy(np.repeat(np.arange(EMB_BAGS), sizes).astype(
         np.int32)).cuda()
+    cot = torch.rand((EMB_BAGS, EMB_DIM), generator=gen, device="cuda")
 
     def call():
         return ops.embedding_bag(table, ids, bags, EMB_BAGS, weights=w)
-    torch.cuda.synchronize()
-    sc.reset_launches()
-    out = call()
-    torch.cuda.synchronize()
-    launches = dict(sc.LAUNCHES)
-    if launches["dense"] != 1:
-        raise AssertionError(f"embedding_bag: {launches}")
-    held = hold_block("embedding_bag", call)
-    exact = torch.zeros((EMB_BAGS, EMB_DIM), dtype=torch.float64,
-                        device="cuda").index_add_(
-        0, bags.long(), table.index_select(0, ids).double()
-        * w.double()[:, None])
+    out, eb_counts, sc_counts = counted(call)
+    check_emb_launches("embedding_bag", eb_counts, sc_counts,
+                       {"forward": 1, "backward": 0})
+    held = hold_embedding_bag("embedding_bag", table, ids, bags, EMB_BAGS,
+                              w, cot)
+    exact = eb.embedding_bag_forward_plain(table.double(), ids, bags,
+                                           EMB_BAGS, w.double())
     err = (out.double() - exact).abs()
     if not (err <= SUM_RTOL * exact.abs()).all():
         raise AssertionError(f"embedding_bag off by more than rtol "
                              f"{SUM_RTOL}: {float(err.max())}")
-
-    def plain():
-        rows = table.index_select(0, ids) * w[:, None]
-        return sc.segment_combine_plain(rows, bags, EMB_BAGS, "sum")
+    extra = extra_peak_bytes(call, lambda o: o.numel() * 4)
+    if not extra < n * EMB_DIM * 4:
+        raise AssertionError(f"embedding_bag forward took {extra} bytes of "
+                             "scratch: an [n, d] buffer")
     offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)[:-1]])
                                .astype(np.int32)).cuda()
-    moved = n * EMB_DIM * 4 + 3 * n * 4 + EMB_BAGS * EMB_DIM * 4
+    distinct = int(torch.unique(ids).numel())
+    dev_ms, dev_by = device_ms(call, reps)
     rec = {"name": "embedding_bag", "route": "cuda",
-           "source": KERNEL_SOURCE, "replaces": EMB_REPLACES,
-           "launches": launches["dense"],
+           "source": EMB_SOURCE, "replaces": EMB_REPLACES,
+           "launches": eb_counts["forward"],
            "max_abs_err": float(err.max()),
-           "ms": cuda_ms(call, reps), "plain_ms": cuda_ms(plain, reps),
-           "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "ms": cuda_ms(call, reps),
+           "plain_ms": cuda_ms(lambda: eb.embedding_bag_forward_plain(
+               table, ids, bags, EMB_BAGS, w), reps),
+           "bound_ms": emb_bound_ms(n, distinct, EMB_DIM, EMB_BAGS),
+           "bound_by": "bytes",
            "library_ms": cuda_ms(lambda: F.embedding_bag(
-               ids, table, offsets, mode="sum", per_sample_weights=w), reps)}
-    rec.update(embedding_backward(table, ids, bags, w, offsets, gen, reps))
-    log("embedding_bag", json.dumps({**rec, "ids": n, "bags": EMB_BAGS,
+               ids, table, offsets, mode="sum", per_sample_weights=w), reps),
+           "device_ms": dev_ms, "device_ms_by_kernel": dev_by,
+           "library_device_ms": device_ms(lambda: F.embedding_bag(
+               ids, table, offsets, mode="sum", per_sample_weights=w),
+               reps)[0],
+           "extra_peak_bytes": extra}
+    rec.update(embedding_backward(table, ids, bags, w, offsets, cot,
+                                  distinct, reps))
+    log("embedding_bag", json.dumps({**rec, "ids": n, "distinct_ids":
+                                     distinct, "bags": EMB_BAGS,
                                      "max_rel_err": float(
                                          (err / exact.abs()).max()),
                                      "held": held}))
-    del table
+    del table, exact
     torch.cuda.empty_cache()
     return rec
 
 
-def embedding_backward(table, ids, bags, w, offsets, gen, reps):
+def embedding_backward(table, ids, bags, w, offsets, cot, distinct, reps):
     """The gradients of `kernels.ops.embedding_bag` at the same call: the
-    table's (the combine over the ids-sorted order, one launch) and the
-    per-id weights' (a row-wise dot product) for a `[4096, 16]` cotangent
-    (CUDA generator).  One counted backward (counts set to 0 just before,
-    read just after), its combine call held, both gradients against
-    float64 sums within SUM_RTOL, then the backward's time against the
-    plain version's (`segment_combine_plain` of the gradient rows by id)
-    and `torch.nn.functional.embedding_bag`'s backward.  Returns the
-    `backward_*` fields of the kernels-line record."""
+    table's and the per-id weights' for the `[4096, 16]` cotangent `cot`.
+    One counted backward (one backward launch, no combine launch), both
+    gradients against float64 within SUM_RTOL, its scratch bytes, then the
+    backward's time (and with only the weights asked for), its device time
+    by kernel (sort, memset, walk, fold), against the plain version and
+    `F.embedding_bag`'s backward.  Returns the `backward_*` fields of the
+    kernels-line record."""
     import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import ops
-    from repro_torch.kernels import segment_combine as sc
-    cot = torch.rand((EMB_BAGS, EMB_DIM), generator=gen, device="cuda")
     tab = table.detach().requires_grad_(True)
     wt = w.detach().requires_grad_(True)
     out = ops.embedding_bag(tab, ids, bags, EMB_BAGS, weights=wt)
-    torch.cuda.synchronize()
-    sc.reset_launches()
-    g_tab, g_w = torch.autograd.grad(out, (tab, wt), cot, retain_graph=True)
-    torch.cuda.synchronize()
-    launches = dict(sc.LAUNCHES)
-    if launches != {"dense": 1, "tile": 0, "compact": 0}:
-        raise AssertionError(f"embedding_bag backward: {launches}")
-    held = hold_block("embedding_bag backward", lambda: torch.autograd.grad(
-        out, (tab, wt), cot, retain_graph=True))
-    rows64 = cot.double().index_select(0, bags.long())
-    exact = torch.zeros(table.shape, dtype=torch.float64,
-                        device="cuda").index_add_(
-        0, ids.long(), rows64 * w.double()[:, None])
+
+    def grads():
+        return torch.autograd.grad(out, (tab, wt), cot, retain_graph=True)
+    (g_tab, g_w), eb_counts, sc_counts = counted(grads)
+    check_emb_launches("embedding_bag backward", eb_counts, sc_counts,
+                       {"forward": 0, "backward": 1})
+    exact, exact_w = eb.embedding_bag_backward_plain(
+        cot.double(), table.double(), ids, bags, EMB_BAGS, w.double())
     err = (g_tab.double() - exact).abs()
-    exact_w = (rows64 * table.index_select(0, ids).double()).sum(1)
     err_w = (g_w.double() - exact_w).abs()
     if not ((err <= SUM_RTOL * exact.abs()).all()
             and (err_w <= SUM_RTOL * exact_w.abs()).all()):
         raise AssertionError(f"embedding_bag gradients off by more than "
                              f"rtol {SUM_RTOL}: table {float(err.max())}, "
                              f"weights {float(err_w.max())}")
-    del exact, rows64
-
-    def plain():
-        grad_rows = cot.index_select(0, bags.long()) * w[:, None]
-        return sc.segment_combine_plain(grad_rows, ids, EMB_ROWS, "sum")
+    fields = {"backward_max_abs_err": max(float(err.max()),
+                                          float(err_w.max()))}
+    del exact, exact_w, err, g_tab, g_w
+    n = ids.shape[0]
+    extra = extra_peak_bytes(grads, lambda g: sum(x.numel() * 4 for x in g))
+    if not extra < min(n * EMB_DIM * 4, (EMB_ROWS + 1) * 4):
+        raise AssertionError(f"embedding_bag backward took {extra} bytes of "
+                             "scratch: an [n, d] buffer or a row pointer")
+    wt_only = w.detach().requires_grad_(True)
+    out_w = ops.embedding_bag(table, ids, bags, EMB_BAGS, weights=wt_only)
     lib_out = F.embedding_bag(ids, tab, offsets, mode="sum",
                               per_sample_weights=wt)
-    n = ids.shape[0]
-    # read: the cotangent, bag ids, ids, weights, the gathered table rows;
+    dev_ms, dev_by = device_ms(grads, reps)
+    # read: the cotangent, ids, bag ids, weights, each distinct table row;
     # written: the whole table gradient and the weight gradient
-    moved = (EMB_BAGS * EMB_DIM * 4 + 3 * n * 4 + n * EMB_DIM * 4
+    moved = (EMB_BAGS * EMB_DIM * 4 + 3 * n * 4 + distinct * EMB_DIM * 4
              + EMB_ROWS * EMB_DIM * 4 + n * 4)
-    fields = {
-        "backward_launches": launches["dense"],
-        "backward_max_abs_err": max(float(err.max()), float(err_w.max())),
-        "backward_ms": cuda_ms(lambda: torch.autograd.grad(
-            out, (tab, wt), cot, retain_graph=True), reps),
-        "backward_plain_ms": cuda_ms(plain, reps),
+    fields.update({
+        "backward_launches": eb_counts["backward"],
+        "backward_ms": cuda_ms(grads, reps),
+        "backward_device_ms": dev_ms,
+        "backward_device_ms_by_kernel": dev_by,
+        "backward_weights_only_ms": cuda_ms(lambda: torch.autograd.grad(
+            out_w, (wt_only,), cot, retain_graph=True), reps),
+        "backward_plain_ms": cuda_ms(lambda: eb.embedding_bag_backward_plain(
+            cot, table, ids, bags, EMB_BAGS, w), reps),
         "backward_bound_ms": moved / HBM_BYTES_PER_S * 1e3,
         "backward_library_ms": cuda_ms(lambda: torch.autograd.grad(
             lib_out, (tab, wt), cot, retain_graph=True), reps),
-        "backward_held": held}
-    del out, lib_out, g_tab, g_w, err
+        "backward_library_device_ms": device_ms(lambda: torch.autograd.grad(
+            lib_out, (tab, wt), cot, retain_graph=True), reps)[0],
+        "backward_extra_peak_bytes": extra})
+    del out, out_w, lib_out
     return fields
+
+
+def embedding_edge_inputs(d, gen):
+    """(name, table, ids, bag ids, num_bags, weights, cotangent) of the
+    kernels' edge cases at width d: positive values (CUDA generator), a
+    100,000-row table, 50,000 ids."""
+    rows, n, used = 100_000, 50_000, 20_000
+    table = torch.rand((rows, d), generator=gen, device="cuda")
+    ids = torch.randint(0, rows, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    w = torch.rand(n, generator=gen, device="cuda")
+    bags = torch.sort(torch.randint(0, used, (n,), generator=gen,
+                                    device="cuda", dtype=torch.int32)).values
+    cot = torch.rand((3 * used + 100, d), generator=gen, device="cuda")
+
+    def case(name, ids_, bags_, num_bags, w_):
+        return (name, table, ids_.contiguous(),
+                bags_.to(torch.int32).contiguous(), num_bags, w_,
+                cot[:num_bags].contiguous())
+    return [
+        # two empty bags after each used one, and 100 trailing
+        case("empty_between_and_100_trailing", ids, 3 * bags,
+             3 * used + 100, w),
+        case("one_bag_holds_every_id", ids, torch.zeros_like(bags), 1, w),
+        case("one_id_at_every_position", torch.full_like(ids, 5), bags,
+             used, w),
+        case("ids_0_and_N-1", torch.where(ids % 2 == 0, 0, rows - 1),
+             bags, used, w),
+        case("weights_None", ids, bags, used, None),
+        case("n_0", ids[:0], bags[:0], used, w[:0]),
+        case("int64_ids", ids.long(), bags, used, w),
+        case("bags_past_num_bags_dropped", ids, 2 * bags, used, w)]
+
+
+def embedding_edge_phase():
+    """Every case of `embedding_edge_inputs` at every width of EMB_EDGE_D,
+    both kernels held (`hold_embedding_bag`).  Returns the cases held."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    held = 0
+    for d in EMB_EDGE_D:
+        for name, *args in embedding_edge_inputs(d, gen):
+            errs = hold_embedding_bag(f"embedding_bag {name} d={d}", *args)
+            log(f"embedding_bag_case {name} d={d} n={args[1].shape[0]} "
+                f"bags={args[3]} held {json.dumps(errs)}")
+            held += 1
+        torch.cuda.empty_cache()
+    log(f"embedding_bag_cases_held={held}")
+    return held
+
+
+def embedding_gcn_phase(part, reps):
+    """The forward at GCN's propagate shape, information only: ids = the
+    dst-sorted partition's `src`, bags = its `dst` (and `seg_ptr`), weights
+    = GCN's sym norm, a `[V, d]` table (CUDA generator seed 3) for d in
+    EMB_GCN_D.  One counted call, held against the plain version in
+    float64 (a few columns at a time), then its time, device time and
+    bound beside today's route (`index_select`, scale, the combine kernel:
+    `models/gnn.py`'s propagate) and `F.embedding_bag`.  Returns one
+    record a width."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops
+    from repro_torch.models import gnn
+    v = part.num_masters
+    n = int(part.seg_ptr[v])                  # the edges routed to a vertex
+    ids, bags = part.src[:n], part.dst[:n]
+    seg_ptr = part.seg_ptr[:v + 1]
+    w = gnn.compute_gcn_edge_norm(ids, bags, torch.ones(
+        n, dtype=torch.bool, device="cuda"), v)
+    distinct = int(torch.unique(ids).numel())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    records = []
+    for d in EMB_GCN_D:
+        table = torch.rand((v, d), generator=gen, device="cuda")
+
+        def call():
+            return ops.embedding_bag(table, ids, bags, v, weights=w,
+                                     seg_ptr=seg_ptr)
+
+        def today():
+            msg = table.index_select(0, ids).mul_(w[:, None])
+            return ops.segment_combine(msg, bags, v, "sum", seg_ptr=seg_ptr)
+        out, eb_counts, sc_counts = counted(call)
+        check_emb_launches(f"embedding_bag gcn d={d}", eb_counts, sc_counts,
+                           {"forward": 1, "backward": 0})
+        cols = max(1, HOLD_F64_BYTES // (8 * n))
+        worst = 0.0
+        for c in range(0, d, cols):
+            ref = eb.embedding_bag_forward_plain(
+                table[:, c:c + cols].double().contiguous(), ids, bags, v,
+                w.double())
+            err = (out[:, c:c + cols].double() - ref).abs()
+            if not (err <= SUM_RTOL * ref.abs()).all():
+                raise AssertionError(f"embedding_bag gcn d={d} off by more "
+                                     f"than rtol {SUM_RTOL}")
+            worst = max(worst, float(err.max()))
+            del ref, err
+        del out
+        dev_ms, dev_by = device_ms(call, reps)
+        rec = {"d": d, "ids": n, "distinct_ids": distinct, "bags": v,
+               "max_abs_err": worst,
+               "ms": cuda_ms(call, reps), "device_ms": dev_ms,
+               "device_ms_by_kernel": dev_by,
+               "bound_ms": emb_bound_ms(n, distinct, d, v),
+               "gather_bound_ms": emb_bound_ms(n, n, d, v),
+               "today_ms": cuda_ms(today, reps),
+               "today_device_ms": device_ms(today, reps)[0],
+               "library_ms": cuda_ms(lambda: F.embedding_bag(
+                   ids, table, seg_ptr[:-1], mode="sum",
+                   per_sample_weights=w), reps)}
+        log("embedding_bag_gcn", json.dumps(rec))
+        records.append(rec)
+        del table
+        torch.cuda.empty_cache()
+    return records
 
 
 # ------------------------------------------------------------ GNN phase
@@ -2911,7 +3154,7 @@ def run_phases(args, ingress, cache_dir) -> int:
     log("torch", torch.__version__, "cuda", torch.version.cuda)
 
     t0 = time.perf_counter()
-    names = ("segment_combine", "flash_attention")
+    names = ("segment_combine", "flash_attention", "embedding_bag")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(_build.load, names))
     log(f"build_s={time.perf_counter() - t0:.3f}")
@@ -2948,7 +3191,16 @@ def run_phases(args, ingress, cache_dir) -> int:
     sssp_plan, tune_launches = tuning_phase(graph, part, source, ref,
                                             cache_dir)
     bc_launches = bc_phase(graph, part)
+    t0 = time.perf_counter()
     emb = embedding_phase(args.reps)
+    t1 = time.perf_counter()
+    emb["edge_cases_held"] = embedding_edge_phase()
+    t2 = time.perf_counter()
+    emb["gcn"] = [{k: r[k] for k in ("d", "ms", "device_ms", "bound_ms",
+                                     "today_ms", "library_ms")}
+                  for r in embedding_gcn_phase(part, args.reps)]
+    log(f"embedding_phase_s={t1 - t0:.3f} embedding_edge_phase_s="
+        f"{t2 - t1:.3f} embedding_gcn_phase_s={time.perf_counter() - t2:.3f}")
     # GNN training: full graph, the float64 check, minibatches, molecules
     gnn_launches, gcn_ref = gnn_phase(graph, min(args.scale, GNN_F64_SCALE))
     # incremental re-convergence and graph serving on the single shard

@@ -3,9 +3,10 @@ gradients.
 
 The route is chosen by where the tensors lie: a CUDA tensor always runs the
 hand-written kernel (`segment_combine.segment_combine_cuda`,
-`flash_attention.flash_attention_cuda`), a CPU tensor the plain PyTorch
-version.  There is no switch and no fallback; the JAX package's
-`use_pallas=True/False` has no counterpart here.  Combine payloads may be
+`flash_attention.flash_attention_cuda`, the `embedding_bag` kernels), a
+CPU tensor the plain PyTorch version.  There is no switch and no
+fallback; the JAX package's `use_pallas=True/False` has no counterpart
+here.  Combine payloads may be
 `[E]` or `[E, *payload]`; they are flattened to the kernel's `[E, D]`.
 
 The combine and the row gather are `torch.autograd.Function`s, and their
@@ -21,6 +22,10 @@ kernels on the card and never takes a float atomic:
   row gather   `table[idx]` (`gather_rows`) backward is the ⊕ = sum of the
                gradient rows into the table, over the idx-sorted order
                (`GatherRoute`): the dense route, never `index_add_`.
+
+`embedding_bag` is an autograd Function of its own over the
+`kernels/embedding_bag.py` kernels: a fused gather-weight-bag-sum
+forward and a sorted-run backward, not the combine.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import segment_combine as sc
 
@@ -66,16 +72,6 @@ def _tile(msgs, dst, num_segments, op, valid):
     return _unflat(out, msgs, num_segments)
 
 
-def _rows_at(x: torch.Tensor, dst: torch.Tensor, num_segments: int,
-             fill: float) -> torch.Tensor:
-    """`x[dst]` over `x`'s segment rows, `fill` where dst >= num_segments
-    (a lane the combine dropped)."""
-    pad = torch.full((1,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
-                     device=x.device)
-    idx = dst.clamp(max=num_segments)
-    return torch.cat([x, pad]).index_select(0, idx)
-
-
 class _Combine(torch.autograd.Function):
     """⊕ over `dst` on one route, differentiable in `msgs`."""
 
@@ -98,18 +94,18 @@ class _Combine(torch.autograd.Function):
         num_segments, op, route, seg_ptr, valid = ctx.args
         if op == "sum":
             (dst,) = ctx.saved_tensors
-            return (_rows_at(grad, dst, num_segments, 0.0),
+            return (sc.rows_at(grad, dst, num_segments, 0.0),
                     None, None, None, None, None, None)
         dst, msgs, out = ctx.saved_tensors
         # NaN never equals a message, so dropped lanes take no share
-        ties = msgs == _rows_at(out, dst, num_segments, math.nan)
+        ties = msgs == sc.rows_at(out, dst, num_segments, math.nan)
         count = (segment_combine(ties.to(grad.dtype), dst, num_segments,
                                  "sum", seg_ptr=seg_ptr) if route == "dense"
                  else tile_segment_combine(ties.to(grad.dtype), dst,
                                            num_segments, "sum", valid))
         count = count + (out == sc.IDENTITY[op]).to(grad.dtype)
         share = grad / count.clamp(min=1.0)
-        return (_rows_at(share, dst, num_segments, 0.0) * ties,
+        return (sc.rows_at(share, dst, num_segments, 0.0) * ties,
                 None, None, None, None, None, None)
 
 
@@ -189,27 +185,58 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     return _GatherRows.apply(table, idx, route)
 
 
+class _EmbeddingBag(torch.autograd.Function):
+    """The bag sum on `table`'s device, differentiable in `table` and
+    `weights`: the kernels on a CUDA tensor, the plain versions on a CPU
+    one.  The backward computes only the gradients asked for."""
+
+    @staticmethod
+    def forward(ctx, table, ids, bag_ids, num_bags, weights):
+        fwd = (eb.embedding_bag_forward_cuda if table.is_cuda
+               else eb.embedding_bag_forward_plain)
+        ctx.num_bags = num_bags
+        ctx.save_for_backward(table, ids, bag_ids, weights)
+        return fwd(table, ids, bag_ids, num_bags, weights)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        table, ids, bag_ids, weights = ctx.saved_tensors
+        need_table, _, _, _, need_w = ctx.needs_input_grad
+        bwd = (eb.embedding_bag_backward_cuda if grad.is_cuda
+               else eb.embedding_bag_backward_plain)
+        g_table, g_w = bwd(grad.contiguous(), table, ids, bag_ids,
+                           ctx.num_bags, weights, need_table, need_w)
+        return g_table, None, None, None, g_w
+
+
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   bag_ids: torch.Tensor, num_bags: int,
                   weights: Optional[torch.Tensor] = None,
                   seg_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """EmbeddingBag: gather `table[ids]`, scale each row by its optional
-    per-id weight, then sum the rows of each bag into `[num_bags, d]`.
+    """EmbeddingBag: `out[b] = Σ_{bag_ids[i] = b} weights[i] · table[ids[i]]`
+    into `[num_bags, d]`, empty bags zero, `bag_ids >= num_bags` dropped.
 
-    The gather is `gather_rows` (a plain `index_select` forward, as the JAX
-    package leaves it to XLA outside its kernel); the bag sum is the
-    combine kernel's dense route, so `bag_ids` (int32) must be sorted
-    (ascending, one bag's ids together).  `seg_ptr` is the bags' row
-    pointer; without it the row pointer is built from `bag_ids`
-    (`segment_row_pointer`).  Differentiable in `table` (the ⊕ = sum over
-    the ids-sorted order) and `weights` (a row-wise dot product).
+    `bag_ids` must be sorted (ascending, one bag's ids together).  On a
+    CUDA tensor the bag sum is its own kernel
+    (`embedding_bag.embedding_bag_forward_cuda`), which reads each table
+    row by id and finds the bag bounds from `bag_ids` itself, so `seg_ptr`
+    (a caller's row pointer over the bags) is accepted and not needed.
+    The table is float32 in the kernel: another dtype is cast, and the
+    result keeps the table's.  Differentiable in `table` (a walk of the
+    ids-sorted order, each table row's gradient written once) and
+    `weights` (a row-wise dot product), never through a float atomic.
     """
-    rows = gather_rows(table, ids)
-    if weights is not None:
-        rows = rows * weights[:, None]
-    if seg_ptr is None:
-        seg_ptr = sc.segment_row_pointer(bag_ids, num_bags)
-    return segment_combine(rows, bag_ids, num_bags, "sum", seg_ptr=seg_ptr)
+    del seg_ptr                     # the kernels find the bags themselves
+    dtype = table.dtype
+    if table.is_cuda:               # the kernels' types and layouts
+        table = table.to(torch.float32).contiguous()
+        ids = ids.contiguous()
+        bag_ids = bag_ids.to(torch.int32).contiguous()
+        if weights is not None:
+            weights = weights.to(torch.float32).contiguous()
+    out = _EmbeddingBag.apply(table, ids, bag_ids, num_bags, weights)
+    return out.to(dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -71,6 +71,16 @@ def segment_row_pointer(dst_sorted: torch.Tensor,
     return torch.searchsorted(dst_sorted, bounds, out_int32=True)
 
 
+def rows_at(x: torch.Tensor, dst: torch.Tensor, num_segments: int,
+            fill: float) -> torch.Tensor:
+    """`x[dst]` over `x`'s segment rows, `fill` where dst >= num_segments
+    (a lane the combine dropped): the transpose of the ⊕ = sum."""
+    pad = torch.full((1,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                     device=x.device)
+    idx = dst.clamp(max=num_segments)
+    return torch.cat([x, pad]).index_select(0, idx)
+
+
 def segment_combine_plain(msgs: torch.Tensor, dst: torch.Tensor,
                           num_segments: int, op: str) -> torch.Tensor:
     """Plain version: `out[v] = ⊕ msgs[dst == v]`, identity where empty.

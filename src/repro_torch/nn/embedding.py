@@ -1,10 +1,11 @@
 """Embedding lookup and EmbeddingBag (the counterpart of
 `repro/nn/embedding.py`).
 
-Both are a row gather and, for bags, the Scatter-Combine ⊕ = sum: the
-port's `kernels.ops.gather_rows` and `kernels.ops.embedding_bag`, whose
-gradients go through the combine kernel over the ids-sorted order, never
-through a float atomic.  `sharded_embedding_lookup` (a psum over the table
+The lookup is the port's `kernels.ops.gather_rows`, whose gradient goes
+through the combine kernel over the ids-sorted order; the bag reduce is
+`kernels.ops.embedding_bag`, a kernel of its own (a fused gather, weight
+and bag sum forward, a sorted-run backward).  Neither gradient takes a
+float atomic.  `sharded_embedding_lookup` (a psum over the table
 axis) comes with the other-models slice and the communicator.
 """
 from __future__ import annotations
@@ -38,10 +39,9 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     D].  `mode` "mean" divides each bag by its member count (at least 1)."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
-    seg_ptr = segment_row_pointer(bag_ids, num_bags)
-    out = ops.embedding_bag(table, ids, bag_ids, num_bags, weights=weights,
-                            seg_ptr=seg_ptr)
+    out = ops.embedding_bag(table, ids, bag_ids, num_bags, weights=weights)
     if mode == "mean":
+        seg_ptr = segment_row_pointer(bag_ids, num_bags)
         cnt = (seg_ptr[1:] - seg_ptr[:-1]).to(table.dtype)
         out = out / torch.clamp(cnt, min=1.0)[:, None]
     return out

@@ -391,7 +391,8 @@ def _kernel_names(source: str) -> list:
 
 
 @pytest.mark.parametrize("source", ["segment_combine.cu",
-                                    "flash_attention.cu"])
+                                    "flash_attention.cu",
+                                    "embedding_bag.cu"])
 def test_profile_groups_name_every_kernel(source):
     """The profiler's split (`tools/profile_torch_main_path.py`) puts every
     kernel of the port's sources in a named group, so a renamed or new

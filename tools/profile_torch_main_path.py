@@ -63,8 +63,10 @@ ROOT = Path(__file__).resolve().parent.parent
 # kernel-name fragment -> group; the first match wins.  The combine
 # kernel's passes (partition, combine, carry fold) are "combine_kernel"; the
 # tile route's lane compaction, which took the place of its whole-tile sort,
-# is "sort" with the sort of the compacted lanes.
-GROUPS = (("merge_path_partition", "combine_kernel"),
+# is "sort" with the sort of the compacted lanes; the EmbeddingBag kernels
+# (walks, carry fold, weight-gradient tiles) are "embedding_bag_kernel".
+GROUPS = (("embedding_bag_", "embedding_bag_kernel"),
+          ("merge_path_partition", "combine_kernel"),
           ("combine_d1_kernel", "combine_kernel"),
           ("combine_cols_kernel", "combine_kernel"),
           ("fold_carries", "combine_kernel"),
