@@ -199,6 +199,32 @@
    Step 3b's `dist_run` lines also count each run's host reads of the
    frontier and of a compaction's valid total; the latter must be 0
    (every tile route passes its count).
+3g. After the k = 8 GCN pass: the same distributed path on 8 processes,
+   one shard a rank (`repro_torch.dist.world`, `ProcessGroupComm`, gloo
+   over CUDA tensors on the one card: gloo stages them through host
+   memory and TCP on 127.0.0.1, so the ranks' times measure that, not
+   NVLink).  The parent writes both agent graphs and GCN's node rows
+   (planted features, labels, train mask, degrees) to `.npy` files once
+   and frees the card; each rank memory-maps them and builds only its
+   shard's topology.  Each rank runs PageRank (30) under agent and dense,
+   SSSP under agent, pipelined and async (staleness 2), the compacted BFS
+   under agent and CC under agent: the combine calls of its first 3
+   supersteps held on their own inputs as in step 3b, then the run with
+   the counts and `values` set to 0 just before and read just after,
+   between two barriers (`dist_rank_run` lines: rank 0's wall, launches,
+   peak memory and topology seconds of each rank).  Min programs must
+   equal step 3b's stacked run and the oracle bitwise, PageRank the
+   stacked run within 1e-5 (whether bitwise is printed) and the oracle
+   within 1e-4; every rank's result must be the same, the supersteps the
+   stacked run's, and the ranks' `values` add up to the stacked count.
+   Then one GCN gradient pass over the 8 ranks (`rank_gcn`: the loss's
+   count and the gradients summed over the ranks in rank order) within
+   1e-5 (loss) and 1e-4 (gradients) of step 3f's stacked k = 8 pass, the
+   ranks bitwise equal to each other (`dist_rank_gcn`), and a world of one
+   NCCL rank whose every communicator call must equal `StackedComm(1)`'s
+   bitwise (`dist_nccl_world`).  The `dist_ranks_world` line prints the
+   spawn and init seconds of each rank, the parent's memory on the card
+   before the spawn and each rank's peak.
 4. Attention kernel phase: the flash-attention kernel against its plain
    version at smollm-135m's prefill shape (B=4, S=2048, 3 kv heads x 3,
    H=64, causal, bf16), a ragged causal length (S=1000, bf16), float32
@@ -244,8 +270,9 @@
    greedy generation through `lm_forward`.
 6. Prints the `kernels` JSON line (the combine kernel's two routes, the
    compaction, `embedding_bag` and the attention kernel; the combine
-   entries also carry their launches in step 3a's tuned runs and BC pass
-   the GNN steps' forward and backward launches, and the (op, width) of
+   entries also carry their launches in step 3a's tuned runs and BC pass,
+   the GNN steps' forward and backward launches and the ranks' of step 3g
+   (summed over the ranks), and the (op, width) of
    every call held on the path's own inputs; `embedding_bag` its
    backward's launches and times, its edge cases held and its GCN-shaped
    times), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
@@ -1747,7 +1774,8 @@ def gnn_dist_run(graph, inputs, gcn_ref):
     stacked shards of the directed graph's agent graph (sync topology),
     from GCN's initial parameters: its loss within GNN_LOSS_RTOL of the
     single card's and every gradient within GNN_GRAD_TOL of the largest
-    magnitude of its leaf."""
+    magnitude of its leaf.  Returns the pass's loss and gradients (the
+    reference of the pass over ranks, `dist_ranks_phase`)."""
     from repro_torch.configs import get_config
     from repro_torch.dist.comm import StackedComm
     from repro_torch.models import gnn
@@ -1779,6 +1807,7 @@ def gnn_dist_run(graph, inputs, gcn_ref):
                              f"{rec}, per leaf {errs}")
     del stacked, prop_fn
     torch.cuda.empty_cache()
+    return loss, grads
 
 
 # ----------------------------------------------------- incremental phase
@@ -2397,8 +2426,8 @@ def dist_run(name, exchange, opts, inputs, ref, source, single_steps,
              checked):
     """One program under one exchange on the stacked shards: the run, its
     oracle check, its superstep count against the single-shard run and its
-    launch counts; returns the `dist_run` record."""
-    from repro_torch.core.dist_engine import original_order
+    launch counts; returns the `dist_run` record and the result in original
+    order."""
     from repro_torch.core.frontier import HOST_READS as FRONTIER_READS
     from repro_torch.kernels.segment_combine import HOST_READS, LAUNCHES
     eng, ag, topo, st, fig, steps = dist_setup(name, exchange, opts, inputs,
@@ -2410,9 +2439,9 @@ def dist_run(name, exchange, opts, inputs, ref, source, single_steps,
     launches = {r: LAUNCHES[r] - before[r] for r in LAUNCHES}
     compact_reads = HOST_READS["compact_total"] - reads[0]
     frontier_reads = FRONTIER_READS["frontier_counts"] - reads[1]
-    result = original_order(ag, out.vertex_data)
+    result = eng.original_order(ag, out.vertex_data)
     if not checked:
-        return None
+        return None, None
     ref_name = "bfs" if name == "bfs_compact" else name
     if name == "pagerank":
         np.testing.assert_allclose(result, ref["pagerank"], rtol=1e-4,
@@ -2443,17 +2472,19 @@ def dist_run(name, exchange, opts, inputs, ref, source, single_steps,
            "edges_per_s": e * out.step / (ms / 1e3) if out.step else 0.0,
            "launches": launches, "compact_total_reads": compact_reads,
            "frontier_reads": frontier_reads,
-           "values_per_superstep": per_step,
+           "values_per_superstep": per_step, "comm_values": eng.comm.values,
            "comm_values_per_superstep": eng.comm.values / max(out.step, 1)}
     log("dist_run", json.dumps(rec))
-    return rec
+    return rec, result
 
 
 def dist_phase(inputs, ref, source, single_steps):
     """The distributed phase: async refuses PageRank, one untimed pass of
     every run of DIST_RUNS, then the timed pass with the combine and
     compaction counts set to 0 just before and read just after, then the
-    kernels held at the path's shapes (`dist_hold_phase`)."""
+    kernels held at the path's shapes (`dist_hold_phase`).  Returns the
+    records, the launches and each run's `(record, result)` by
+    `run_key`."""
     from repro_torch.core import algorithms
     from repro_torch.core.dist_engine import DistGREEngine
     from repro_torch.kernels import segment_combine as sc
@@ -2472,16 +2503,22 @@ def dist_phase(inputs, ref, source, single_steps):
     torch.cuda.reset_peak_memory_stats()
     sc.reset_launches()
     t0 = time.perf_counter()
-    runs = [dist_run(name, exchange, opts, inputs, ref, source,
-                     single_steps, True)
-            for name, exchange, opts in DIST_RUNS]
+    finals = {run_key(name, exchange, opts): dist_run(
+        name, exchange, opts, inputs, ref, source, single_steps, True)
+        for name, exchange, opts in DIST_RUNS}
+    runs = [rec for rec, _ in finals.values()]
     launches = dict(sc.LAUNCHES)
     log(f"dist_path_s={time.perf_counter() - t0:.3f} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
     log("dist_launches", json.dumps(launches))
     log("dist_compact_total_reads", sc.HOST_READS["compact_total"])
     dist_hold_phase(inputs, source)
-    return runs, launches
+    return runs, launches, finals
+
+
+def run_key(name, exchange, opts) -> str:
+    return " ".join([name, exchange] + [f"{k}={v}" for k, v in
+                                        sorted(opts.items())])
 
 
 # (program, exchange) whose first DIST_HOLD_STEPS supersteps have every
@@ -2618,7 +2655,7 @@ def dist_tuned_phase(inputs, ref, source, plan, cache_path):
     must adopt it and select the pipelined exchange, and its SSSP must
     equal the default (agent) engine's and the oracle bitwise."""
     from repro_torch.core import algorithms
-    from repro_torch.core.dist_engine import DistGREEngine, original_order
+    from repro_torch.core.dist_engine import DistGREEngine
     from repro_torch.tuning import PlanCache, plan_cache_key
     ag, topos, _ = inputs["directed"]
     prog = algorithms.sssp_program()
@@ -2637,7 +2674,7 @@ def dist_tuned_phase(inputs, ref, source, plan, cache_path):
                               ("default", default, topos["sync"], dst0)):
         e.make_run(ag, 10_000)(topo, s0)               # untimed
         out, ms = timed(lambda: e.make_run(ag, 10_000)(topo, s0))
-        runs[name] = (original_order(ag, out.vertex_data), out.step, ms)
+        runs[name] = (e.original_order(ag, out.vertex_data), out.step, ms)
     if not np.array_equal(runs["auto-tuned"][0], runs["default"][0]):
         raise AssertionError("dist auto-tuned SSSP != the default engine's")
     assert_exact("dist auto-tuned sssp",
@@ -2666,7 +2703,7 @@ def dist_incremental_phase(inputs, delta, source, sssp_cold):
     tight pads).  Returns the record."""
     from repro_torch.core import algorithms
     from repro_torch.core.agent_graph import build_agent_graph
-    from repro_torch.core.dist_engine import DistGREEngine, original_order
+    from repro_torch.core.dist_engine import DistGREEngine
     from repro_torch.graph.generators import rmat_edges
     from repro_torch.kernels import segment_combine as sc
     t_phase = time.perf_counter()
@@ -2701,7 +2738,7 @@ def dist_incremental_phase(inputs, delta, source, sssp_cold):
     del warm0
     cold_state, ms = timed(lambda: eng.make_run(new_ag, 10_000)(
         topo, eng.init_state(new_ag, source=source)))
-    cold = original_order(new_ag, cold_state.vertex_data)
+    cold = eng.original_order(new_ag, cold_state.vertex_data)
     if not (np.array_equal(warm, cold) and np.array_equal(warm, sssp_cold)):
         raise AssertionError("dist incremental: warm != cold")
     if launches["dense"] <= 0:
@@ -2792,6 +2829,371 @@ def dist_serving_phase(inputs, stream, old_bfs):
     log("dist_serving", json.dumps(rec))
     log(f"dist_serving_phase_s={time.perf_counter() - t_phase:.3f}")
     return rec
+
+
+# -------------------------------------------- distributed, one shard a rank
+# (program, exchange, options) of the world of DIST_K ranks, in run order:
+# each is a run of DIST_RUNS, whose stacked result and count it is held to
+RANK_RUNS = (("pagerank", "agent", {}), ("pagerank", "dense", {}),
+             ("sssp", "agent", {}), ("sssp", "pipelined", {}),
+             ("sssp", "async", {"staleness": 2}),
+             ("bfs_compact", "agent", {}), ("cc", "agent", {}))
+# seconds: the world's join and every collective's; the world takes about
+# 53 s on the H100, and a hung rank must fail the phase well inside the
+# script's limit
+RANK_TIMEOUT = 240.0
+RANK_PR_RTOL = 1e-5      # PageRank over ranks against the stacked run
+
+
+def save_agent_graph(ag, path: Path) -> None:
+    """An AgentGraph's fields as `.npy` files (a dict field one file a
+    key) and `meta.json` (the scalars), for `load_agent_graph`."""
+    path.mkdir(parents=True)
+    meta = {}
+    for f in dataclasses.fields(ag):
+        v = getattr(ag, f.name)
+        if isinstance(v, np.ndarray):
+            np.save(path / f"{f.name}.npy", v)
+        elif isinstance(v, dict):
+            meta[f.name] = {"keys": sorted(v)}
+            for n, a in v.items():
+                np.save(path / f"{f.name}.{n}.npy", a)
+        else:
+            meta[f.name] = list(v) if isinstance(v, tuple) else v
+    (path / "meta.json").write_text(json.dumps(
+        meta, default=lambda o: o.item()))
+
+
+def load_agent_graph(path: Path):
+    """`save_agent_graph`'s AgentGraph, its arrays memory-mapped (copy on
+    write): a rank reads the pages it touches."""
+    from repro_torch.core.agent_graph import AgentGraph
+    meta = json.loads((path / "meta.json").read_text())
+    fields = {}
+    for f in dataclasses.fields(AgentGraph):
+        m = meta.get(f.name)
+        if isinstance(m, dict):
+            fields[f.name] = {n: np.load(path / f"{f.name}.{n}.npy",
+                                         mmap_mode="c") for n in m["keys"]}
+        elif f.name in meta:
+            fields[f.name] = tuple(m) if isinstance(m, list) else m
+        else:
+            fields[f.name] = np.load(path / f"{f.name}.npy", mmap_mode="c")
+    return AgentGraph(**fields)
+
+
+def write_gcn_inputs(graph, work: Path) -> None:
+    """`full_graph_batch`'s node rows for gcn-cora (planted labels, train
+    mask and `[V, 100]` features, seed 0) and the graph's out- and
+    in-degrees (its sym norm), as `.npy` files a rank memory-maps."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gcn-cora")[0]
+    n = graph.num_vertices
+    labels, train = planted_labels(n, cfg.n_classes, 0)
+    feats = planted_features(labels, GNN_D_FEAT, 0)
+    np.save(work / "gcn_feats.npy", feats.cpu().numpy())
+    del feats
+    np.save(work / "gcn_labels.npy", labels.astype(np.int64))
+    np.save(work / "gcn_train.npy", train)
+    np.save(work / "gcn_dout.npy", np.bincount(graph.src, minlength=n))
+    np.save(work / "gcn_din.npy", np.bincount(graph.dst, minlength=n))
+
+
+def tree_numpy(tree):
+    """A parameter tree's leaves as numpy arrays, in its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_numpy(v) for v in tree]
+    return None if tree is None else tree.detach().cpu().numpy()
+
+
+def rank_runs(comm, ags, work: Path, source):
+    """A rank's RANK_RUNS on the shard it holds: per run the combine calls
+    of the first DIST_HOLD_STEPS supersteps held on their own inputs
+    (`hold_block`), then the run with the combine counts and `values` set
+    to 0 just before and read just after, between two barriers (the wall
+    is the barrier-to-barrier time); rank 0 writes the all-gathered result
+    to `work`.  Returns one record a run."""
+    import hashlib
+    import torch.distributed as dist
+    from repro_torch.core import algorithms
+    from repro_torch.core.dist_engine import DistGREEngine
+    from repro_torch.kernels import segment_combine as sc
+    dev, topos, recs = comm.device, {}, []
+    for name, exchange, opts in RANK_RUNS:
+        factory, seeded, frontier, key, steps = DIST_PROGRAMS[name]
+        ag = ags[key]
+        eng = DistGREEngine(getattr(algorithms, factory)(), ag.k,
+                            exchange=exchange, frontier=frontier, device=dev,
+                            comm=comm, **opts)
+        t0 = time.perf_counter()
+        tkey = (key, "tiles" if eng.plan.phases != "sync" else exchange)
+        if tkey not in topos:
+            topos[tkey] = eng.device_topology(ag)
+        topo = topos[tkey]
+        torch.cuda.synchronize(dev)
+        topo_s = time.perf_counter() - t0
+        st = eng.init_state(ag, source=source if seeded else None)
+        held = hold_block(f"rank {comm.rank} {name} {exchange}",
+                          lambda: eng.make_run(ag, DIST_HOLD_STEPS)(topo, st))
+        torch.cuda.reset_peak_memory_stats(dev)
+        sc.reset_launches()
+        comm.values = 0
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = eng.make_run(ag, steps)(topo, st)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches, values = dict(sc.LAUNCHES), comm.values
+        peak = torch.cuda.max_memory_allocated(dev)
+        result = eng.original_order(ag, out.vertex_data)
+        run = run_key(name, exchange, opts)
+        if comm.rank == 0:
+            np.save(work / f"result {run}.npy", result)
+        recs.append({"run": run, "supersteps": out.step, "wall_ms": wall_ms,
+                     "launches": launches, "values": values,
+                     "max_memory_allocated": peak, "topology_s": topo_s,
+                     "held": held,
+                     "digest": hashlib.sha1(result.tobytes()).hexdigest()})
+        del out, st
+    del topos
+    torch.cuda.empty_cache()
+    return recs
+
+
+def rank_gcn(comm, ag, work: Path, params_np):
+    """A rank's GCN gradient pass through `propagate_sharded`: its node
+    rows from `write_gcn_inputs`' files, the loss over every shard's
+    training nodes, backward, the gradients and the loss summed over the
+    ranks in rank order (`gnn.psum_grads`, `gnn.psum_shares`).  The K1
+    counts are set to 0 just before the loss and read after the sums."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import algorithms
+    from repro_torch.core.dist_engine import DistGREEngine
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.models import gnn
+    cfg = get_config("gcn-cora")[0]
+    dev = comm.device
+    t0 = time.perf_counter()
+    topo = DistGREEngine(algorithms.bfs_program(), ag.k, exchange="agent",
+                         device=dev, comm=comm).device_topology(ag)
+
+    def arr(name):
+        return torch.from_numpy(np.load(work / f"gcn_{name}.npy",
+                                        mmap_mode="c"))
+
+    batch, prop_fn = gnn.shard_node_rows(
+        ag, topo, comm, arr("feats"), arr("labels"), arr("train"),
+        degrees=(arr("dout"), arr("din")))
+    params = gnn.params_from_numpy(params_np, cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    layout_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    sc.reset_launches()
+    comm.values = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    loss = gnn.gnn_loss(params, batch, cfg, prop_fn=prop_fn, comm=comm)
+    fwd = dict(sc.LAUNCHES)
+    loss.backward()
+    gnn.psum_grads(params, comm)
+    total = gnn.psum_shares(comm, loss.detach())
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"loss": float(total), "ms": ms, "layout_s": layout_s,
+            "grads": [p.grad.cpu().numpy() for p in gnn.parameters(params)],
+            "launches_forward": fwd["dense"],
+            "launches_backward": sc.LAUNCHES["dense"] - fwd["dense"],
+            "launches": dict(sc.LAUNCHES), "values": comm.values,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+
+
+def rank_main(comm, work, source, gcn_params):
+    """One rank of the `dist_ranks` world: the programs, then the GCN
+    pass; returns their records and this process's held-call errors."""
+    work = Path(work)
+    free, total = torch.cuda.mem_get_info(comm.device)
+    ags = {key: load_agent_graph(work / key)
+           for key in ("directed", "undirected")}
+    runs = rank_runs(comm, ags, work, source)
+    gcn = rank_gcn(comm, ags["directed"], work, gcn_params)
+    return {"runs": runs, "gcn": gcn, "device_free_at_start": free,
+            "device_total": total, "held_errs": dict(HELD_ERRS),
+            "held_widths": sorted(HELD_WIDTHS)}
+
+
+def nccl_calls(comm):
+    """Every `ProcessGroupComm` call on a world of one NCCL rank against
+    `StackedComm(1)` on the same inputs on the card (numpy seed 0), and
+    `all_to_all`'s backward: the names of the calls that differ."""
+    from repro_torch.dist.comm import StackedComm
+    dev, stacked = comm.device, StackedComm(1)
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    rows = t(rng.normal(size=(1, 1000, 3)).astype(np.float32))
+    lanes = t(rng.random((1, 8)) < 0.5)
+    send = t(rng.normal(size=(1, 1, 500, 2)).astype(np.float32))
+    cot = t(rng.normal(size=(1, 1, 500, 2)).astype(np.float32))
+    flags = t(np.array([[False, True, False]]))
+    got, want = {}, {}
+    for out, c in ((got, comm), (want, stacked)):
+        for op in ("psum", "pmin", "pmax", "all_gather"):
+            out[op] = getattr(c, op)(rows)
+        out["pmax_bool"] = c.pmax(lanes)
+        out["all_to_all_bool"] = c.all_to_all(flags.reshape(1, 1, 3))
+        x = send.clone().requires_grad_(True)
+        y = c.all_to_all(x)
+        (y * cot).sum().backward()
+        out["all_to_all"], out["all_to_all_grad"] = y.detach(), x.grad
+        out["any"] = torch.tensor([c.any(flags), c.any(~flags.any(
+            dim=1, keepdim=True))])
+    failed = [n for n in want
+              if not (got[n].dtype == want[n].dtype
+                      and got[n].shape == want[n].shape
+                      and torch.equal(got[n].cpu(), want[n].cpu()))]
+    return {"calls": sorted(want), "failed": failed, "device": str(dev)}
+
+
+def dist_ranks_phase(ags, graph, ref, source, finals, gcn_stacked,
+                     gcn_params0):
+    """The distributed path on DIST_K processes, one shard a rank
+    (`repro_torch.dist.world`, gloo over CUDA tensors on the one card):
+    the agent graphs and GCN's node rows go to `.npy` files once, each
+    rank memory-maps them; RANK_RUNS (`rank_runs`) and the GCN pass
+    (`rank_gcn`) run in every rank.  Held here: min programs bitwise
+    against the stacked run of `dist_phase` and the host oracle, PageRank
+    within RANK_PR_RTOL of the stacked run (bitwise or not, printed) and
+    1e-4 of the oracle, every rank's result equal (a digest), supersteps
+    equal to the stacked run's, the ranks' `values` adding up to the
+    stacked count, K1 launched on every rank (K2 on some rank of the
+    compacted BFS), every rank's held calls; the GCN loss and gradients
+    against `gnn_dist_run`'s within GNN_LOSS_RTOL / GNN_GRAD_TOL.  Then an
+    NCCL world of one rank (`nccl_calls`).  Returns the ranks' combine
+    launches, summed by route."""
+    from repro_torch.dist.world import run_world
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        for key, ag in ags.items():
+            save_agent_graph(ag, work / key)
+        write_gcn_inputs(graph, work)
+        write_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        parent = {"allocated": torch.cuda.memory_allocated(),
+                  "reserved": torch.cuda.memory_reserved(),
+                  "device_free": free, "device_total": total}
+        t0 = time.perf_counter()
+        done = run_world(rank_main, DIST_K,
+                         (str(work), source, tree_numpy(gcn_params0)),
+                         backend="gloo", device="cuda", timeout=RANK_TIMEOUT)
+        world_s = time.perf_counter() - t0
+        results = {run_key(*r): np.load(work / f"result {run_key(*r)}.npy")
+                   for r in RANK_RUNS}
+    ranks = [r.value for r in done]
+    peaks = [max([x["max_memory_allocated"] for x in v["runs"]]
+                 + [v["gcn"]["max_memory_allocated"]]) for v in ranks]
+    log("dist_ranks_world", json.dumps({
+        "ranks": DIST_K, "backend": "gloo", "write_inputs_s": write_s,
+        "world_s": world_s, "spawn_s": [r.spawn_s for r in done],
+        "init_s": [r.init_s for r in done], "parent_memory": parent,
+        "rank_device_free_at_start": [v["device_free_at_start"]
+                                      for v in ranks],
+        "rank_max_memory_allocated": peaks,
+        "parent_reserved_plus_rank_peaks": parent["reserved"] + sum(peaks)}))
+    launches = {"dense": 0, "tile": 0, "compact": 0}
+    for i, (name, exchange, opts) in enumerate(RANK_RUNS):
+        key = run_key(name, exchange, opts)
+        srec, stacked = finals[key]
+        recs = [v["runs"][i] for v in ranks]
+        got = results[key]
+        ref_name = "bfs" if name == "bfs_compact" else name
+        if name == "pagerank":
+            np.testing.assert_allclose(got, stacked, rtol=RANK_PR_RTOL,
+                                       atol=0)
+            np.testing.assert_allclose(got, ref["pagerank"], rtol=1e-4,
+                                       atol=1e-4)
+        else:
+            if not np.array_equal(got, stacked):
+                raise AssertionError(f"ranks {key}: != the stacked run")
+            assert_exact(f"ranks {key}", torch.from_numpy(got),
+                         ref[ref_name])
+        if len({r["digest"] for r in recs}) != 1:
+            raise AssertionError(f"ranks {key}: the ranks' results differ")
+        steps = [r["supersteps"] for r in recs]
+        if set(steps) != {srec["supersteps"]}:
+            raise AssertionError(f"ranks {key}: supersteps {steps}, "
+                                 f"stacked {srec['supersteps']}")
+        values = sum(r["values"] for r in recs)
+        if values != srec["comm_values"]:
+            raise AssertionError(f"ranks {key}: values {values}, stacked "
+                                 f"{srec['comm_values']}")
+        per_rank = [r["launches"] for r in recs]
+        if min(n["dense"] for n in per_rank) <= 0 or (
+                name == "bfs_compact" and not any(n["tile"] for n in
+                                                  per_rank)):
+            raise AssertionError(f"ranks {key}: launches {per_rank}")
+        if not all(r["held"] for r in recs):
+            raise AssertionError(f"ranks {key}: a rank held no call")
+        for n in per_rank:
+            for route in launches:
+                launches[route] += n[route]
+        log("dist_rank_run", json.dumps({
+            "run": key, "ranks": DIST_K, "supersteps": steps[0],
+            "wall_ms_rank0": recs[0]["wall_ms"],
+            "stacked_wall_ms": srec["wall_ms"],
+            "bitwise_vs_stacked": bool(np.array_equal(got, stacked)),
+            "values": values, "launches": per_rank,
+            "max_memory_allocated": [r["max_memory_allocated"]
+                                     for r in recs],
+            "topology_s": [r["topology_s"] for r in recs],
+            "held": [sum(r["held"].values()) for r in recs]}))
+    for v in ranks:
+        for route, e in v["held_errs"].items():
+            HELD_ERRS[route] = max(HELD_ERRS[route], e)
+        HELD_WIDTHS.update(tuple(w) for w in v["held_widths"])
+    gcn = [v["gcn"] for v in ranks]
+    loss0, grads0 = gcn_stacked
+    loss_err = abs(gcn[0]["loss"] - float(loss0)) / abs(float(loss0))
+    errs = leaf_errors([torch.from_numpy(g) for g in gcn[0]["grads"]],
+                       [g.double().cpu() for g in grads0])
+    same = all(g["loss"] == gcn[0]["loss"] and all(
+        np.array_equal(a, b) for a, b in zip(g["grads"], gcn[0]["grads"]))
+        for g in gcn)
+    for g in gcn:
+        launches["dense"] += g["launches"]["dense"]
+    log("dist_rank_gcn", json.dumps({
+        "ranks": DIST_K, "loss": gcn[0]["loss"],
+        "stacked_loss": float(loss0), "loss_rel_err": loss_err,
+        "grad_max_err": max(errs), "ranks_agree": same,
+        "ms_rank0": gcn[0]["ms"], "layout_s": [g["layout_s"] for g in gcn],
+        "launches_forward": [g["launches_forward"] for g in gcn],
+        "launches_backward": [g["launches_backward"] for g in gcn],
+        "values": sum(g["values"] for g in gcn),
+        "max_memory_allocated": [g["max_memory_allocated"] for g in gcn]}))
+    if (loss_err > GNN_LOSS_RTOL or max(errs) > GNN_GRAD_TOL or not same
+            or min(g["launches_backward"] for g in gcn) <= 0):
+        raise AssertionError(f"ranks GCN against the stacked pass: loss "
+                             f"{loss_err}, per leaf {errs}, agree {same}")
+    t0 = time.perf_counter()
+    nccl = run_world(nccl_calls, 1, backend="nccl", device="cuda",
+                     timeout=RANK_TIMEOUT)[0]
+    log("dist_nccl_world", json.dumps({**nccl.value, "world_s":
+                                       time.perf_counter() - t0}))
+    if nccl.value["failed"]:
+        raise AssertionError(f"NCCL world of one: {nccl.value['failed']} "
+                             "differ from StackedComm(1)")
+    log(f"dist_ranks_phase_s={time.perf_counter() - t_phase:.3f} "
+        f"launches={json.dumps(launches)}")
+    return launches
 
 
 # ------------------------------------------------------- attention phase
@@ -3212,19 +3614,25 @@ def run_phases(args, ingress, cache_dir) -> int:
     torch.cuda.empty_cache()
     single_steps = {r["program"]: r["supersteps"] for r in runs}
     inputs = dist_inputs(ingress)
-    dist_phase(inputs, ref, source, single_steps)
+    _, _, finals = dist_phase(inputs, ref, source, single_steps)
     dist_tuned_phase(inputs, ref, source, sssp_plan,
                      cache_dir / "dist.json")
     dist_incremental_phase(inputs, delta, source, sssp_cold)
     dist_serving_phase(inputs, stream, old_bfs)
+    ags = {key: inputs[key][0] for key in ("directed", "undirected")}
     # GCN through propagate_sharded: only the directed sync topology stays
     inputs.pop("undirected")
     inputs.pop("slack", None)
     inputs["directed"][1].pop("tiles")
     torch.cuda.empty_cache()
-    gnn_dist_run(graph, inputs, gcn_ref)
+    gcn_stacked = gnn_dist_run(graph, inputs, gcn_ref)
+    # one shard a process: the card holds only the ranks' shards
+    del inputs, old_bfs, sssp_cold
+    torch.cuda.empty_cache()
+    rank_launches = dist_ranks_phase(ags, graph, ref, source, finals,
+                                     gcn_stacked, gcn_ref[0])
     log(f"held_max_abs_err={json.dumps(HELD_ERRS)}")
-    del graph, ugraph, ref, inputs, old_bfs, sssp_cold
+    del graph, ugraph, ref, ags, finals, gcn_stacked, gcn_ref
     torch.cuda.empty_cache()
 
     attn = attention_kernel_phase(args.reps)
@@ -3232,6 +3640,7 @@ def run_phases(args, ingress, cache_dir) -> int:
 
     kernels = []
     paths = {"tuning": tune_launches, "bc": bc_launches,
+             "dist_ranks": rank_launches,
              **{f"gnn_{k}": {"dense": n, "tile": 0, "compact": 0}
                 for k, n in gnn_launches.items()}}
     for name, route, case in (

@@ -21,21 +21,29 @@ single-shard engine, with an exchange backend supplying the communication
   exchange="null"      — no communication; correct only for k = 1.
 
 Where the JAX package maps the k shards onto a device mesh with
-`shard_map`, this engine lays them end to end in ONE slot space on one
-device, shard i at `[i·num_slots, (i+1)·num_slots)` with its own local
-numbering (masters, scatter agents, combiners, sink).  Each shard's edges
-are sorted by dst and the shards are in order, so the stacked dst is
-sorted too and one row pointer built at ingress lets one combine-kernel
-launch ⊕ every shard at once.  The shard-axis collectives go through a
-communicator (`repro_torch.dist.comm.StackedComm`).  The frontier choice
-(dense or compacted, and the capacities) is made once for all shards over
-the stacked slot space, where the JAX package makes it per shard; an
-explicit `frontier_cap` is each shard's, as there, so the stacked plan
-takes k times it.  For min/max programs both give the dense scan's result
-bitwise.
+`shard_map`, this engine lays the shards its process holds end to end in
+ONE slot space on one device, held shard h at `[h·num_slots,
+(h+1)·num_slots)` with its own local numbering (masters, scatter agents,
+combiners, sink).  Each shard's edges are sorted by dst and the shards are
+in order, so the stacked dst is sorted too and one row pointer built at
+ingress lets one combine-kernel launch ⊕ every held shard at once.  The
+shard-axis collectives go through a communicator
+(`repro_torch.dist.comm`): `StackedComm(k)` (the default) holds all k
+shards in one process, `ProcessGroupComm` one shard a rank of a
+`torch.distributed` world (`comm.shards` says which; every host array of
+the `AgentGraph` stays whole on each rank's host, and only the held rows
+go to the device).  Every rank issues the same collectives in the same
+order: no frontier route issues one, so each rank may pick its own.
 
-Vertex state is flat over the stacked masters, `[k·cap, ...]` in relabeled
-global-id order, so `run` returns `vertex_data[old2new]`.
+The frontier choice (dense or compacted, and the capacities) is made once
+for the held shards over their stacked slot space, where the JAX package
+makes it per shard; an explicit `frontier_cap` is each shard's, as there,
+so the stacked plan takes k_local times it.  For min/max programs both
+give the dense scan's result bitwise.
+
+Vertex state is flat over the held masters, `[k_local·cap, ...]` in
+relabeled global-id order, so `run` returns the all-gathered
+`vertex_data[old2new]` on every rank.
 """
 from __future__ import annotations
 
@@ -122,7 +130,8 @@ def _edge_part(src, dst, mask, props, indptr, eidx, max_deg, num_slots, k,
 
 
 class DistGREEngine:
-    """Runs a VertexProgram over an AgentGraph of `k` shards, stacked on one
+    """Runs a VertexProgram over an AgentGraph of `k` shards: the shards
+    `comm.shards` of the communicator (all k, stacked, by default) on one
     device (CUDA unless `device="cpu"`).
 
     `plan=SuperstepPlan(...)` adopts a composed mode now (`adopt_plan`);
@@ -138,7 +147,7 @@ class DistGREEngine:
                  exchange: str = "agent", overlap: bool = False,
                  frontier: str = "auto", frontier_cap: Optional[int] = None,
                  staleness: int = 2, device="cuda", plan=None,
-                 plan_cache=None):
+                 plan_cache=None, comm=None):
         if exchange not in self.EXCHANGES:
             raise ValueError(f"exchange must be one of {self.EXCHANGES}, "
                              f"got {exchange!r}")
@@ -153,16 +162,24 @@ class DistGREEngine:
         self.device = resolve_device(device)
         self.program = program
         self.k = k
-        self.comm = StackedComm(k)
+        self.comm = StackedComm(k) if comm is None else comm
+        if self.comm.k != k:
+            raise ValueError(f"the communicator spans {self.comm.k} shards, "
+                             f"this engine k={k}")
+        held = self.comm.shards
+        # the held shards' rows of every `[k, ...]` host array (a view)
+        self.rows = slice(held.start, held.stop)
+        self.k_local = len(held)
         self.exchange = exchange
         self.overlap = overlap
         self.staleness = staleness
         # `frontier_cap` is a shard's capacity (as in the JAX package); the
-        # local engine resolves the frontier over all k stacked shards
+        # local engine resolves the frontier over the held stacked shards
         self.frontier_cap = frontier_cap
         self.local = GREEngine(
             program, frontier=frontier,
-            frontier_cap=None if frontier_cap is None else k * frontier_cap)
+            frontier_cap=(None if frontier_cap is None
+                          else self.k_local * frontier_cap))
         self._plan_cache = plan_cache
         self._auto_plan_pending = False
         if plan is None:
@@ -175,7 +192,7 @@ class DistGREEngine:
     def adopt_plan(self, plan) -> None:
         """Take a composed SuperstepPlan for every shard: the frontier
         stage lands on the local engine (its `frontier_cap` a shard's, so
-        the stacked engine takes k times it) and the phase shape selects
+        the stacked engine takes k_local times it) and the phase shape selects
         the exchange: "pipelined" the split-tile pipelined exchange,
         "async" the k-deep ring (monotone programs only; refuses
         otherwise, so a cached plan cannot bring staleness to a sum
@@ -188,7 +205,7 @@ class DistGREEngine:
         self.local.adopt_plan(plan)
         self.frontier_cap = plan.frontier_cap
         if plan.frontier_cap is not None:
-            self.local.frontier_cap = self.k * plan.frontier_cap
+            self.local.frontier_cap = self.k_local * plan.frontier_cap
         if plan.phases == "pipelined":
             self.exchange = "pipelined"
         elif plan.phases == "async":
@@ -255,11 +272,13 @@ class DistGREEngine:
 
     # ----------------------------------------------------------- host → device
     def _aux(self, ag: AgentGraph) -> Dict[str, np.ndarray]:
-        return {"out_degree": ag.out_degree.reshape(-1),
-                "global_id": ag.new2old.astype(np.float32)}
+        """The held masters' `aux` columns, `[k_local·cap]` each."""
+        masters = slice(self.rows.start * ag.cap, self.rows.stop * ag.cap)
+        return {"out_degree": ag.out_degree[self.rows].reshape(-1),
+                "global_id": ag.new2old[masters].astype(np.float32)}
 
     def device_topology(self, ag: AgentGraph) -> ShardTopology:
-        """The stacked topology on the engine's device.
+        """The held shards' stacked topology on the engine's device.
 
         Under the pipelined and async phase shapes every edge scan runs on
         the split tiles (`ShardTopology.tiles`) and the canonical partition
@@ -267,63 +286,70 @@ class DistGREEngine:
         reads.
         """
         self._check(ag)
-        k, cap, ns, sink = ag.k, ag.cap, ag.num_slots, ag.sink
-        dev = self.device
+        kl, cap, ns, sink = self.k_local, ag.cap, ag.num_slots, ag.sink
+        rows, dev = self.rows, self.device
         aux = self._aux(ag)
         tiles = None
         if self.plan.phases != "sync":
             part = DevicePartition.from_arrays(
-                {"aux": aux}, {"num_masters": cap, "num_slots": k * ns,
-                               "edges_sorted_by_dst": True, "shards": k},
+                {"aux": aux}, {"num_masters": cap, "num_slots": kl * ns,
+                               "edges_sorted_by_dst": True, "shards": kl},
                 device=dev)
             tiles = self._pipeline_tiles(ag)
         else:
-            part = _edge_part(ag.src, _stack_rows(ag.dst, ns), ag.edge_mask,
-                              ag.edge_props, ag.csr_indptr, ag.csr_eidx,
-                              ag.csr_max_deg, ns, k, cap, aux, dev)
+            part = _edge_part(
+                ag.src[rows], _stack_rows(ag.dst[rows], ns),
+                ag.edge_mask[rows],
+                {n: v[rows] for n, v in ag.edge_props.items()},
+                ag.csr_indptr[rows], ag.csr_eidx[rows], ag.csr_max_deg, ns,
+                kl, cap, aux, dev)
 
         def to_dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        # received [k, k, s_x] buffer: row i, column j = what shard i got
-        # from shard j, landing on scat_recv_slot[i, j]
-        keep = ag.scat_recv_slot.reshape(-1) != sink
-        recv_slot = _stack_rows(ag.scat_recv_slot, ns).reshape(-1)
+        # received [k_local, k, s_x] buffer: row i, column j = what held
+        # shard i got from shard j, landing on scat_recv_slot[i, j]
+        keep = ag.scat_recv_slot[rows].reshape(-1) != sink
+        recv_slot = _stack_rows(ag.scat_recv_slot[rows], ns).reshape(-1)
         # combine flush: received row j, column i lands on the master
-        # comb_recv_master[j, i] of shard j
-        recv_master = ag.comb_recv_master
+        # comb_recv_master[j, i] of held shard j
+        recv_master = ag.comb_recv_master[rows]
         comb_keep = recv_master != sink
         comb_recv = dense_route = None
         if self.plan.phases == "sync" and self.exchange != "null":
             comb_recv = CombineRoute.build(_stack_rows(recv_master, ns),
-                                           comb_keep, k * ns, dev)
+                                           comb_keep, kl * ns, dev)
         if self.exchange == "dense":
             dense_route = self._dense_route(ag)
         return ShardTopology(
             part=part,
-            scat_send=to_dev(_stack_rows(ag.scat_send_master, ns)),
+            scat_send=to_dev(_stack_rows(ag.scat_send_master[rows], ns)),
             scat_recv_pos=to_dev(np.flatnonzero(keep)),
             scat_recv_slot=to_dev(recv_slot[keep]),
-            comb_send=to_dev(_stack_rows(ag.comb_send_slot, ns)),
+            comb_send=to_dev(_stack_rows(ag.comb_send_slot[rows], ns)),
             comb_recv=comb_recv, dense_route=dense_route, tiles=tiles)
 
     def _dense_route(self, ag: AgentGraph) -> CombineRoute:
-        """DenseExchange's per-shard vectors `[k, k·cap]`: buffer entries
-        are each shard's masters (`[k·cap]`), then its combiners' partials
-        (`[k, k, c_x]`); shard i's vector puts its master m at global id
-        `i·cap + m` and its partial for shard j's master r at `j·cap + r`."""
-        k, cap = ag.k, ag.cap
+        """DenseExchange's vectors `[k_local, k·cap]`, one a held shard:
+        buffer entries are the held shards' masters (`[k_local·cap]`),
+        then their combiners' partials (`[k_local, k, c_x]`); held shard
+        h = shard i puts its master m at global id `i·cap + m` of row h and
+        its partial for shard j's master r at `j·cap + r`."""
+        k, kl, cap = ag.k, self.k_local, ag.cap
         width = k * cap
-        i = np.arange(k, dtype=np.int64)
-        own = (i[:, None] * width + i[:, None] * cap
+        h = np.arange(kl, dtype=np.int64)
+        i = h + self.rows.start
+        own = (h[:, None] * width + i[:, None] * cap
                + np.arange(cap)[None, :]).reshape(-1)
-        recv = ag.comb_recv_master.transpose(1, 0, 2)    # [i, j, p] on j
-        tgt = (i[:, None, None] * width + i[None, :, None] * cap
+        # [i, j, p]: where shard j puts the partial it gets from shard i
+        recv = ag.comb_recv_master.transpose(1, 0, 2)[self.rows]
+        tgt = (h[:, None, None] * width
+               + np.arange(k, dtype=np.int64)[None, :, None] * cap
                + recv.astype(np.int64))
         targets = np.concatenate([own, tgt.reshape(-1)])
         keep = np.concatenate([np.ones(own.shape, bool),
                                (recv < cap).reshape(-1)])
-        return CombineRoute.build(targets, keep, k * width, self.device)
+        return CombineRoute.build(targets, keep, kl * width, self.device)
 
     def _pipeline_tiles(self, ag: AgentGraph) -> PipelineTiles:
         """Stacked remote/local edge tiles and their exchange indices.
@@ -335,50 +361,55 @@ class DistGREEngine:
         is dropped (it would land on `cap`, the local identity slot).
         """
         split = split_edge_tiles(ag)
-        k, cap, c_pad, ns = ag.k, ag.cap, ag.c_pad, ag.num_slots
-        comb_base = cap + ag.s_pad
+        kl, cap, c_pad, ns = self.k_local, ag.cap, ag.c_pad, ag.num_slots
+        rows, comb_base = self.rows, cap + ag.s_pad
 
         def tile_part(t, block):
-            return _edge_part(t.src, _stack_rows(t.dst, block), t.mask,
-                              t.props, t.csr_indptr, t.csr_eidx,
-                              t.csr_max_deg, ns, k, cap, {}, self.device)
+            return _edge_part(t.src[rows], _stack_rows(t.dst[rows], block),
+                              t.mask[rows],
+                              {n: v[rows] for n, v in t.props.items()},
+                              t.csr_indptr[rows], t.csr_eidx[rows],
+                              t.csr_max_deg, ns, kl, cap, {}, self.device)
 
-        recv = ag.comb_recv_master
+        recv = ag.comb_recv_master[rows]
         return PipelineTiles(
             part_remote=tile_part(split.remote, c_pad + 1),
             part_local=tile_part(split.local, cap + 1),
             comb_send=torch.from_numpy(_stack_rows(
-                ag.comb_send_slot - comb_base, c_pad + 1)).to(self.device),
+                ag.comb_send_slot[rows] - comb_base,
+                c_pad + 1)).to(self.device),
             comb_recv=CombineRoute.build(_stack_rows(recv, cap + 1),
-                                         recv != ag.sink, k * (cap + 1),
+                                         recv != ag.sink, kl * (cap + 1),
                                          self.device),
             num_combiners=c_pad)
 
     def init_state(self, ag: AgentGraph, source=None,
                    lane_tracking: bool = False) -> EngineState:
-        """The stacked initial state.  `source` is an ORIGINAL vertex id,
-        or, for `payload_shape=(D,)` multi-source programs, a length-D
+        """The held shards' initial state.  `source` is an ORIGINAL vertex
+        id, or, for `payload_shape=(D,)` multi-source programs, a length-D
         sequence of original ids (source d seeds payload lane d; a `None`
-        or negative entry leaves lane d empty).
+        or negative entry leaves lane d empty); a source seeds only on the
+        process that holds its master.
 
-        `lane_tracking=True` attaches the per-lane halt vector `[k, D]`."""
+        `lane_tracking=True` attaches the per-lane halt vector
+        `[k_local, D]`."""
         self._check(ag)
         p = self.program
-        k, cap, ns = ag.k, ag.cap, ag.num_slots
+        kl, cap, ns = self.k_local, ag.cap, ag.num_slots
         dev = self.device
         aux = {n: torch.from_numpy(a).to(dev)
                for n, a in self._aux(ag).items()}
-        vd = p.init_vertex_data(k * cap, aux)
-        sd0 = p.init_scatter_data(k * cap, aux).to(p.msg_dtype)
+        vd = p.init_vertex_data(kl * cap, aux)
+        sd0 = p.init_scatter_data(kl * cap, aux).to(p.msg_dtype)
         payload = tuple(sd0.shape[1:])
-        sd = torch.full((k, ns) + payload, p.monoid.identity,
+        sd = torch.full((kl, ns) + payload, p.monoid.identity,
                         dtype=p.msg_dtype, device=dev)
-        sd[:, :cap] = sd0.reshape((k, cap) + payload)
-        act = torch.zeros((k, ns), dtype=torch.bool, device=dev)
+        sd[:, :cap] = sd0.reshape((kl, cap) + payload)
+        act = torch.zeros((kl, ns), dtype=torch.bool, device=dev)
         # padding masters (no original vertex) stay inactive
-        real = torch.from_numpy(ag.new2old >= 0).to(dev)
-        act[:, :cap] = (p.init_active(k * cap, aux) & real).reshape(k, cap)
-        sd = sd.reshape((k * ns,) + payload)
+        real = aux["global_id"] >= 0
+        act[:, :cap] = (p.init_active(kl * cap, aux) & real).reshape(kl, cap)
+        sd = sd.reshape((kl * ns,) + payload)
         act = act.reshape(-1)
         seeded = []
         if source is not None:
@@ -390,8 +421,10 @@ class DistGREEngine:
                 if not ok:
                     continue
                 g = int(ag.old2new[int(sv)])
-                i, s = g // cap, g % cap
-                slot = i * ns + s
+                i, s = g // cap - self.rows.start, g % cap
+                if not 0 <= i < kl:
+                    continue          # another process holds its master
+                g, slot = i * cap + s, i * ns + s
                 if multi and p.seed_sources is not None:
                     rows = slice(i * cap, (i + 1) * cap)
                     srows = slice(i * ns, (i + 1) * ns)
@@ -420,7 +453,7 @@ class DistGREEngine:
                 raise ValueError(f"expected {D} source entries")
             row = np.zeros(D, dtype=bool) if not seeded else np.array(seeded)
             lane_active = torch.from_numpy(
-                np.broadcast_to(row, (k, D)).copy()).to(dev)
+                np.broadcast_to(row, (kl, D)).copy()).to(dev)
         return EngineState(vd, sd, act, 0, lane_active)
 
     # ------------------------------------------------------------ incremental
@@ -429,38 +462,46 @@ class DistGREEngine:
                          ) -> EngineState:
         """Distributed warm start (see `GREEngine.warm_start_state`): the
         invalidation and seeding passes run on the host in ORIGINAL vertex
-        order (`old2new` maps the stacked master rows out and back), so
-        the policy code (`repro_torch.core.incremental`) is the single
-        shard's.  `ag` is the MUTATED agent graph; `apply_edge_delta`
-        keeps master placement, so `prev_state`'s master rows line up even
-        when the pads regrew."""
+        order over every shard (`old2new` maps the stacked master rows out
+        and back; a process all-gathers the master rows it does not hold),
+        so the policy code (`repro_torch.core.incremental`) is the single
+        shard's; the held rows are then taken.  `ag` is the MUTATED agent
+        graph; `apply_edge_delta` keeps master placement, so `prev_state`'s
+        master rows (this process's) line up even when the pads regrew."""
         from repro_torch.core import incremental
         from repro_torch.core.agent_graph import slot_to_original
         self._check(ag)
         p = self.program
         incremental.check_supported(p, report)
-        k, cap, V, ns = ag.k, ag.cap, ag.num_vertices, ag.num_slots
+        k, kl, cap, V = ag.k, self.k_local, ag.cap, ag.num_vertices
+        ns = ag.num_slots
         state0 = self.init_state(ag, source=source,
                                  lane_tracking=lane_tracking)
         payload = tuple(state0.scatter_data.shape[1:])
-        ns_prev = prev_state.scatter_data.shape[0] // k
+        ns_prev = prev_state.scatter_data.shape[0] // kl
 
-        def masters(sd, slots):   # stacked [k·slots, ...] -> [k·cap, ...]
-            return sd.reshape((k, slots) + payload)[:, :cap].reshape(
-                (k * cap,) + payload)
+        def masters(sd, slots):   # [kl·slots, ...] -> [kl·cap, ...]
+            return sd.reshape((kl, slots) + payload)[:, :cap].reshape(
+                (kl * cap,) + payload)
 
         sd = state0.scatter_data.clone()
-        sd_view = sd.view((k, ns) + payload)
+        sd_view = sd.view((kl, ns) + payload)
         if not p.halts:
             sd_view[:, :cap] = masters(prev_state.scatter_data,
                                        ns_prev).reshape(
-                                           (k, cap) + payload)
+                                           (kl, cap) + payload)
             return dataclasses.replace(state0,
                                        vertex_data=prev_state.vertex_data,
                                        scatter_data=sd)
+
+        def every(x):   # held master rows -> [k·cap, ...] on the host
+            rows = x.reshape((kl, cap) + tuple(x.shape[1:]))
+            return self.comm.all_gather(rows).reshape(
+                (k * cap,) + tuple(x.shape[1:])).cpu().numpy()
+
         o2n = ag.old2new
-        vd_prev = prev_state.vertex_data.cpu().numpy()[o2n]
-        sd_prev = masters(prev_state.scatter_data, ns_prev).cpu().numpy()[o2n]
+        vd_prev = every(prev_state.vertex_data)[o2n]
+        sd_prev = every(masters(prev_state.scatter_data, ns_prev))[o2n]
         s2o = slot_to_original(ag)
         m = ag.edge_mask
         lsrc = np.concatenate([s2o[i][ag.src[i]][m[i]] for i in range(k)])
@@ -471,9 +512,9 @@ class DistGREEngine:
         protected = incremental.source_mask(vd_prev.shape, source)
         tainted = incremental.compute_taint(p, V, lsrc, ldst, eprop,
                                             vd_prev, report, protected)
-        vd0 = state0.vertex_data.cpu().numpy()
+        vd0 = every(state0.vertex_data)
         vd = np.where(tainted, vd0[o2n], vd_prev)
-        sd0 = masters(state0.scatter_data, ns).cpu().numpy()
+        sd0 = every(masters(state0.scatter_data, ns))
         sd_new = np.where(tainted, sd0[o2n], sd_prev)
         tany = tainted if tainted.ndim == 1 else tainted.any(axis=-1)
         aux_orig = {
@@ -483,20 +524,23 @@ class DistGREEngine:
         init_act = p.init_active(V, aux_orig).numpy()
         act = incremental.warm_seed_active(V, lsrc, ldst, tany,
                                            report.added_src, init_act)
-        # scatter the original-order columns back into the stacked layout
+        # scatter the original-order columns back into the stacked layout,
+        # then keep the held rows
         vd_st = vd0.copy()
         vd_st[o2n] = vd
         sd_st = sd0.copy()
         sd_st[o2n] = sd_new
         act_st = np.zeros(k * cap, dtype=bool)
         act_st[o2n] = act
+        held = slice(self.rows.start * cap, self.rows.stop * cap)
         dev = self.device
-        sd_view[:, :cap] = torch.from_numpy(sd_st).to(dev).reshape(
-            (k, cap) + payload)
-        active = torch.zeros((k, ns), dtype=torch.bool, device=dev)
-        active[:, :cap] = torch.from_numpy(act_st).to(dev).reshape(k, cap)
+        sd_view[:, :cap] = torch.from_numpy(sd_st[held]).to(dev).reshape(
+            (kl, cap) + payload)
+        active = torch.zeros((kl, ns), dtype=torch.bool, device=dev)
+        active[:, :cap] = torch.from_numpy(act_st[held]).to(dev).reshape(
+            kl, cap)
         return dataclasses.replace(
-            state0, vertex_data=torch.from_numpy(vd_st).to(dev),
+            state0, vertex_data=torch.from_numpy(vd_st[held]).to(dev),
             scatter_data=sd, active_scatter=active.reshape(-1))
 
     def rerun_incremental(self, ag: AgentGraph, prev_state: EngineState,
@@ -520,7 +564,7 @@ class DistGREEngine:
         topo = self.device_topology(new_ag)
         t3 = time.perf_counter()
         out = self.make_run(new_ag, max_steps=max_steps)(topo, state)
-        result = original_order(new_ag, out.vertex_data)
+        result = self.original_order(new_ag, out.vertex_data)
         t4 = time.perf_counter()
         self.last_rerun_s = {"apply_edge_delta": t1 - t0,
                              "warm_start_state": t2 - t1,
@@ -537,8 +581,9 @@ class DistGREEngine:
 
         Each superstep merges within the tick (`plan.execute_superstep`):
         a mailbox carried across ticks would hold partial combines of a
-        retired query.  The per-lane halt rows are OR-ed over the shards,
-        so every row of `lane_active` is the global verdict.
+        retired query.  The per-lane halt rows are OR-ed over every shard
+        through the communicator (`pmax`, as the JAX package's
+        `lax.pmax`), so every row of `lane_active` is the global verdict.
         `exchange="async"` cannot serve ticks: its ring holds remote
         partials for up to `staleness` supersteps, and dropping them at a
         tick boundary would lose messages outright."""
@@ -556,18 +601,18 @@ class DistGREEngine:
                 state = execute_superstep(self.local, topo.part, state,
                                           backend)
             if state.lane_active is not None:
-                la = state.lane_active.any(dim=0, keepdim=True)
-                state = dataclasses.replace(
-                    state, lane_active=la.expand_as(
-                        state.lane_active).contiguous())
+                la = self.comm.pmax(
+                    state.lane_active.reshape(self.k_local, -1))
+                state = dataclasses.replace(state,
+                                            lane_active=la.contiguous())
             return state
         return tick
 
     # ------------------------------------------------------------------- run
     def make_run(self, ag: AgentGraph, max_steps: int = 100):
-        """The distributed run: `fn(topo, state) -> final state`, through
-        the one BSP loop (`plan.execute_plan`) with the communicator's `any`
-        as the halt test over all shards."""
+        """The distributed run: `fn(topo, state) -> final state` (the held
+        shards'), through the one BSP loop (`plan.execute_plan`) with the
+        communicator's `any` as the halt test over all shards."""
         self._check(ag)
 
         def run(topo: ShardTopology, state: EngineState) -> EngineState:
@@ -579,14 +624,24 @@ class DistGREEngine:
 
     def run(self, ag: AgentGraph, source=None,
             max_steps: int = 100) -> Tuple[np.ndarray, EngineState]:
-        """Execute; returns (vertex_data in ORIGINAL vertex order, state)."""
+        """Execute; returns (vertex_data of every shard in ORIGINAL vertex
+        order, the held shards' final state)."""
         topo = self.device_topology(ag)
         state = self.init_state(ag, source=source)
         out = self.make_run(ag, max_steps=max_steps)(topo, state)
-        return original_order(ag, out.vertex_data), out
+        return self.original_order(ag, out.vertex_data), out
+
+    def original_order(self, ag: AgentGraph,
+                       vertex_data: torch.Tensor) -> np.ndarray:
+        """The held master rows `[k_local·cap, ...]` -> every shard's
+        `[V, ...]` in original ids (`comm.all_gather`: a collective)."""
+        payload = tuple(vertex_data.shape[1:])
+        rows = vertex_data.reshape((self.k_local, ag.cap) + payload)
+        every = self.comm.all_gather(rows).reshape((-1,) + payload)
+        return _original_order(ag, every)
 
 
-def original_order(ag: AgentGraph, vertex_data: torch.Tensor) -> np.ndarray:
+def _original_order(ag: AgentGraph, vertex_data: torch.Tensor) -> np.ndarray:
     """Stacked master rows `[k·cap, ...]` -> `[V, ...]` in original ids."""
     return vertex_data.cpu().numpy()[ag.old2new]
 
@@ -601,7 +656,8 @@ def stacked_from_arrays(engine: DistGREEngine, ag_fields: Dict[str, object],
     `EngineState` (`vertex_data [k, cap, ...]`, `scatter_data [k, slots,
     ...]`, `active_scatter [k, slots]`, `step [k]`, optional `lane_active
     [k, D]`).  Returns `(ag, topo, state)` of this package on the engine's
-    device; `state` is None without `state_arrays`.
+    device, the state of the shards the engine holds (`engine.rows`);
+    `state` is None without `state_arrays`.
     """
     names = {f.name for f in dataclasses.fields(AgentGraph)}
     ag = AgentGraph(**{n: v for n, v in ag_fields.items() if n in names})
@@ -611,7 +667,7 @@ def stacked_from_arrays(engine: DistGREEngine, ag_fields: Dict[str, object],
     dev = engine.device
 
     def flat(a):
-        a = np.asarray(a)
+        a = np.asarray(a)[engine.rows]
         return torch.from_numpy(np.require(
             a.reshape((-1,) + a.shape[2:]),
             requirements=["C", "W"])).to(dev)
@@ -626,5 +682,6 @@ def stacked_from_arrays(engine: DistGREEngine, ag_fields: Dict[str, object],
         active_scatter=flat(state_arrays["active_scatter"]),
         step=int(steps[0]) if steps.size else 0,
         lane_active=None if lane is None else torch.from_numpy(
-            np.require(lane, requirements=["C", "W"])).to(dev))
+            np.require(np.asarray(lane)[engine.rows],
+                       requirements=["C", "W"])).to(dev))
     return ag, topo, state

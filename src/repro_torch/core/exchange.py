@@ -26,9 +26,11 @@ shards.  The backends:
                    window, local updates merge every superstep.
 
 The distributed backends work on the stacked layout of
-`repro_torch.core.dist_engine`: the k shards lie end to end in one slot
-space, every exchange index is a flat index into it, and the shard-axis
-collectives go through a communicator (`repro_torch.dist.comm`).  Padding
+`repro_torch.core.dist_engine`: the shards a process holds (all k, or one
+a rank) lie end to end in one slot space, every exchange index is a flat
+index into it, and the shard-axis collectives go through a communicator
+(`repro_torch.dist.comm`), whose `k` and `shards` are the only facts of
+the world the backends read.  Padding
 entries of the exchange lists (sink targets) are dropped where values land,
 so every write is to a distinct slot and the sink keeps the identity.
 
@@ -136,21 +138,22 @@ class AsyncRing:
 
 @dataclasses.dataclass
 class ShardTopology:
-    """The stacked topology: k shards' partitions and exchange indices.
+    """The stacked topology: the held shards' partitions and exchange
+    indices (k_local of the k shards: all k when stacked, one a rank).
 
     Indices are flat slot indices of the stacked slot space.  `scat_send`
-    and `comb_send` are `[k, k, x]` send buffers (row i, column j: what
-    shard i sends to shard j); the receive sides hold only the entries
-    that land: `scat_recv_pos` are positions in the received
-    `[k·k·s_x]` buffer and `scat_recv_slot` their agent slots.
+    and `comb_send` are `[k_local, k, x]` send buffers (row i, column j:
+    what held shard i sends to shard j); the receive sides hold only the
+    entries that land: `scat_recv_pos` are positions in the received
+    `[k_local·k·s_x]` buffer and `scat_recv_slot` their agent slots.
     """
 
-    part: "DevicePartition"          # masters, agents, edges of all shards
-    scat_send: torch.Tensor          # [k, k, s_x] master slots
+    part: "DevicePartition"          # masters, agents, edges of held shards
+    scat_send: torch.Tensor          # [k_local, k, s_x] master slots
     scat_recv_pos: torch.Tensor      # [n_s] int64
     scat_recv_slot: torch.Tensor     # [n_s] int64 agent slots
-    comb_send: torch.Tensor          # [k, k, c_x] combiner slots
-    comb_recv: Optional[CombineRoute] = None     # into [k·num_slots]
+    comb_send: torch.Tensor          # [k_local, k, c_x] combiner slots
+    comb_recv: Optional[CombineRoute] = None     # into [k_local·num_slots]
     dense_route: Optional[CombineRoute] = None   # DenseExchange's vectors
     tiles: Optional[PipelineTiles] = None
 
@@ -293,25 +296,29 @@ class DenseExchange(_RefreshingExchange):
     Each shard builds its `[k·cap]` vector of contributions (its own
     masters' combines at their global ids, its combiners' partials at
     their masters' global ids) and the shards reduce the vectors with
-    `psum`/`pmin`/`pmax`: strictly more traffic than AgentExchange, kept as
-    the communication baseline.
+    `psum`/`pmin`/`pmax`, each keeping its own masters' block:
+    strictly more traffic than AgentExchange, kept as the communication
+    baseline.
     """
 
     def reduce(self, engine, part, state):
         t, monoid, comm = self.topo, self.monoid, self.comm
-        k, cap = part.shards, part.num_masters
+        # the held shards (part.shards of them) each build a vector over
+        # all comm.k shards' masters and keep their own block of the total
+        k, kl, cap = comm.k, part.shards, part.num_masters
         combined = engine.scatter_combine(part, state)
         payload = tuple(combined.shape[1:])
         buf = torch.cat([part.master_rows(combined),
                          _flat(_gather(combined, t.comb_send), payload)])
         vecs = t.dense_route.combine(buf, monoid).reshape(
-            (k, k * cap) + payload)
+            (kl, k * cap) + payload)
         reduce = {"sum": comm.psum, "min": comm.pmin,
                   "max": comm.pmax}[monoid.name]
-        total = reduce(vecs).reshape((k, k, cap) + payload)
-        shard = torch.arange(k, device=combined.device)
-        mine = total[shard, shard]                    # [k, cap, *payload]
-        out = _identity((k, part.num_slots // k) + payload, monoid, combined)
+        total = reduce(vecs).reshape((kl, k, cap) + payload)
+        held = torch.arange(kl, device=combined.device)
+        mine = total[held, held + comm.shards[0]]     # [kl, cap, *payload]
+        out = _identity((kl, part.num_slots // kl) + payload, monoid,
+                        combined)
         out[:, :cap] = mine
         return _flat(out, payload)
 

@@ -15,6 +15,10 @@ Full-graph distributed training runs each layer's propagation through the
 Agent-Graph exchange (`propagate_sharded`) over the stacked topology of
 `repro_torch.core.dist_engine` and its communicator: local partial sums on
 combiner slots + one exchange of the agents' values each way per layer.
+With a `ProcessGroupComm` each rank holds its shard's rows, the loss's
+normaliser is global (`gnn_loss(..., comm=)`), and `psum_shares` /
+`psum_grads` sum the ranks' losses and the replicated parameters'
+gradients in rank order.
 
 Entry points build on CUDA unless the caller passes `device="cpu"`
 (`init_gnn`, `params_from_numpy`, `GraphBatch.build`, `GraphBatch.to`);
@@ -281,12 +285,13 @@ def propagate_sharded(h_slots: torch.Tensor, topo, comm,
                       routes: Optional[ShardRoutes] = None) -> torch.Tensor:
     """Distributed propagation over the stacked Agent-Graph shards.
 
-    h_slots: `[k·num_slots, F]`, master features valid; agent slots are
-    refreshed here (exchange 1), the local edges propagate, and the
-    combiners' partials flush to their masters (exchange 2) through
-    `comm` (`StackedComm`).  Returns the combined `[k·num_slots, F]`
-    (masters valid).  `edge_weight` is per stacked edge, in the
-    topology's edge order.  The exchanges' gathers are `gather_rows` and
+    h_slots: `[k_local·num_slots, F]` over the held shards, master
+    features valid; agent slots are refreshed here (exchange 1), the local
+    edges propagate, and the combiners' partials flush to their masters
+    (exchange 2) through `comm` (`StackedComm` or `ProcessGroupComm`,
+    whose `all_to_all` both carry gradient).  Returns the combined
+    `[k_local·num_slots, F]` (masters valid).  `edge_weight` is per
+    stacked edge, in the topology's edge order.  The exchanges' gathers are `gather_rows` and
     the local edges `propagate`, over `routes` (`ShardRoutes.build(topo)`
     when not given), so every backward runs the combine kernel.
     """
@@ -315,46 +320,89 @@ def shard_graph_batch(batch: GraphBatch, ag, topo, comm):
     """A single-card batch's graph laid over an agent graph's stacked
     shards: `(stacked_batch, prop_fn)` for `gnn_forward`/`gnn_loss`.
 
-    Node rows move to their master slots (zeros, label 0 and no loss
-    weight elsewhere); when the batch has an `edge_norm` it must be the
-    GCN sym norm (`compute_gcn_edge_norm`), which is recomputed on the
-    stacked edges from the batch's degrees.  `ag` is the `AgentGraph` of
-    the batch's graph, `topo` its sync stacked topology on the batch's
-    device.
+    Node rows move to their master slots of the shards `comm` holds
+    (zeros, label 0 and no loss weight elsewhere); when the batch has an
+    `edge_norm` it must be the GCN sym norm (`compute_gcn_edge_norm`),
+    which is recomputed on the stacked edges from the batch's degrees.
+    `ag` is the `AgentGraph` of the batch's graph, `topo` its sync stacked
+    topology (of the held shards) on the engine's device; the batch may
+    lie on another device, and only the held rows move.
     """
-    from repro_torch.core.agent_graph import slot_to_original
-    part = topo.part
-    dev = part.device
-    k, cap, ns = ag.k, ag.cap, ag.num_slots
-    g = torch.from_numpy(ag.old2new.astype(np.int64)).to(dev)
-    slots = (g // cap) * ns + g % cap
-
-    def rows(x):
-        out = torch.zeros((k * ns,) + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=dev)
-        return out.index_copy(0, slots, x.to(dev))
-
-    routes = ShardRoutes.build(topo)
-    norm = None
+    degrees = None
     if batch.edge_norm is not None:
         V = batch.node_feats.shape[0]
         live = batch.edge_mask
-        dout = torch.bincount(batch.src[live].long(), minlength=V)
-        din = torch.bincount(batch.dst[live].long(), minlength=V)
-        orig = torch.from_numpy(slot_to_original(ag).reshape(-1)).to(dev)
+        degrees = (torch.bincount(batch.src[live].long(), minlength=V),
+                   torch.bincount(batch.dst[live].long(), minlength=V))
+    return shard_node_rows(ag, topo, comm, batch.node_feats, batch.labels,
+                           batch.train_mask, degrees)
+
+
+def shard_node_rows(ag, topo, comm, node_feats, labels, train_mask,
+                    degrees=None):
+    """`shard_graph_batch` from the node rows alone: `node_feats [V, F]`,
+    `labels [V]`, `train_mask [V]` in original ids, on any device, and for
+    GCN's sym norm the graph's `(out_degree, in_degree) [V]` (None: no
+    edge weight, as GIN).  A rank reads its own rows of these (they may be
+    memory-mapped host arrays wrapped as tensors) and nothing of the edges
+    beyond its agent graph."""
+    from repro_torch.core.agent_graph import slot_to_original
+    part = topo.part
+    dev = part.device
+    kl, cap, ns = len(comm.shards), ag.cap, ag.num_slots
+    first = comm.shards[0]
+    g = ag.old2new.astype(np.int64)
+    shard = g // cap - first                     # held shard of each vertex
+    held = (shard >= 0) & (shard < kl)
+    mine = None if held.all() else np.flatnonzero(held)  # original ids held
+    slots = torch.from_numpy(shard * ns + g % cap if mine is None
+                             else shard[mine] * ns + g[mine] % cap).to(dev)
+
+    def rows(x):
+        x = torch.as_tensor(x)
+        if mine is not None:
+            x = x.index_select(0, torch.from_numpy(mine).to(x.device))
+        picked = x.to(dev)
+        out = torch.zeros((kl * ns,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=dev)
+        return out.index_copy(0, slots, picked)
+
+    routes = ShardRoutes.build(topo)
+    norm = None
+    if degrees is not None:
+        dout, din = (torch.as_tensor(d).to(dev) for d in degrees)
+        orig = torch.from_numpy(np.ascontiguousarray(
+            slot_to_original(ag)[first:first + kl]).reshape(-1)).to(dev)
         osrc = orig.index_select(0, part.src.long()).clamp(min=0)
         odst = orig.index_select(0, part.dst.long()).clamp(min=0)
-        norm = _sym_norm(dout.to(dev), din.to(dev), osrc, odst)
+        norm = _sym_norm(dout, din, osrc, odst)
         norm = torch.where(part.edge_mask, norm, 0.0)
-    stacked = GraphBatch(rows(batch.node_feats), part.src, part.dst,
-                         part.edge_mask, rows(batch.labels),
-                         rows(batch.train_mask), edge_norm=norm,
-                         routes=routes.edges)
+    stacked = GraphBatch(rows(node_feats), part.src, part.dst,
+                         part.edge_mask, rows(labels), rows(train_mask),
+                         edge_norm=norm, routes=routes.edges)
 
     def prop_fn(h, ew):
         return propagate_sharded(h, topo, comm, ew, routes)
 
     return stacked, prop_fn
+
+
+def psum_shares(comm, x: torch.Tensor) -> torch.Tensor:
+    """`x` summed over the processes of `comm` in rank order (`comm.psum`):
+    a value of which each process holds its shards' share, as a rank's
+    loss or a replicated parameter's gradient.  A communicator that holds
+    every shard (`StackedComm`) holds the whole already, and its sum of
+    the one row is `x` itself."""
+    return comm.psum(x.unsqueeze(0))[0]
+
+
+def psum_grads(params, comm) -> None:
+    """Sum each parameter's `.grad` over the processes of `comm`
+    (`psum_shares`), so every rank holds the gradient of the k-shard
+    loss."""
+    for p in parameters(params):
+        if p.grad is not None:
+            p.grad = psum_shares(comm, p.grad)
 
 
 # ----------------------------------------------------------------- GCN / GIN
@@ -453,10 +501,16 @@ def gnn_forward(params, batch: GraphBatch, cfg: GNNConfig,
     return h @ params["out"] + params["out_b"]
 
 
-def gnn_loss(params, batch: GraphBatch, cfg: GNNConfig, prop_fn=None):
+def gnn_loss(params, batch: GraphBatch, cfg: GNNConfig, prop_fn=None,
+             comm=None):
     """Masked mean cross-entropy (all graphs for graph classification).
     The label pick is a select against the class index, so its backward
-    is elementwise (no scatter)."""
+    is elementwise (no scatter).
+
+    With a communicator (a batch of `shard_graph_batch`) the mean is over
+    the training nodes of every shard, counted through `comm.psum`: a
+    rank's loss is then its share of the k-shard loss, and the ranks'
+    shares sum to it."""
     logits = gnn_forward(params, batch, cfg, prop_fn)
     if batch.graph_ids is not None:
         labels = batch.labels
@@ -468,7 +522,11 @@ def gnn_loss(params, batch: GraphBatch, cfg: GNNConfig, prop_fn=None):
     pick = labels.reshape(-1, 1) == torch.arange(
         logp.shape[-1], device=logp.device)
     ll = torch.where(pick, logp, 0.0).sum(-1)
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if comm is not None:     # per held shard, then over every shard
+        held = mask.reshape(len(comm.shards), -1).sum(dim=1, keepdim=True)
+        count = comm.psum(held)[0, 0]
+    return -(ll * mask).sum() / torch.clamp(count, min=1.0)
 
 
 # ------------------------------------------------- additional GNN families

@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.dist_engine import DistGREEngine, original_order
+from repro_torch.core.dist_engine import DistGREEngine
 
 __all__ = ["GraphQueryBatcher", "Query", "ServingFrontend", "poisson_ticks"]
 
@@ -284,7 +284,7 @@ class GraphQueryBatcher:
         col = (self.program.lane_view(vd, lane)
                if self.program.lane_view is not None else vd[:, lane])
         if self._dist:
-            return original_order(self._ag, col)
+            return self.engine.original_order(self._ag, col)
         # a copy: the lane's buffer is reset in place when it is recycled
         return col.to("cpu", copy=True).numpy()
 

@@ -11,7 +11,8 @@ stacked on one device, here the CPU) against the JAX package.
    atol 1e-6, the JAX package's own tolerance for it
    (tests/test_pipeline_overlap.py).
 2. Against the JAX `DistGREEngine` at k = 4 on four simulated CPU devices:
-   one module-scoped subprocess runs it and writes an `.npz`.  The sync
+   one subprocess a test session runs it and writes an `.npz`
+   (`torch_parity.jax_dist_results`, shared with test_torch_dist_ranks.py).  The sync
    backends on every program, pipelined and async on the min programs
    only (the JAX package's own PageRank differs between its backends in
    the last bit): min values bitwise and step counts equal, PageRank within
@@ -19,10 +20,6 @@ stacked on one device, here the CPU) against the JAX package.
 3. The initial stacked state and the carry-across from the JAX package's
    arrays, and the refusals.
 """
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -37,37 +34,17 @@ from repro.core.engine import GREEngine as JaxEngine
 from repro.graph.structures import Graph as JaxGraph
 from repro_torch.core import algorithms
 from repro_torch.core.agent_graph import build_agent_graph
-from repro_torch.core.dist_engine import (DistGREEngine, original_order,
-                                          stacked_from_arrays)
+from repro_torch.core.dist_engine import DistGREEngine, stacked_from_arrays
 from repro_torch.graph.generators import rmat_edges
 
-from torch_parity import state_arrays, to_graph
+from torch_parity import (BACKENDS, JAX_CASES, PLAN_CAP, PLAN_STRATEGIES,
+                          PROGRAMS, SOURCES4, jax_dist_results,
+                          make_program, state_arrays, to_graph)
 
-SRC = str(Path(__file__).resolve().parent.parent / "src")
 K = 3
-SOURCES4 = [0, 5, None, 77]
 PR_STEPS, MAX_STEPS = 20, 300
 PR_RTOL, PR_ATOL = 1e-5, 1e-6
 
-PROGRAMS = {
-    "sssp": (algorithms.sssp_program, jalg.sssp_program, 0, False),
-    "bfs": (algorithms.bfs_program, jalg.bfs_program, 0, False),
-    "bfs_x4": (lambda: algorithms.bfs_program(4),
-               lambda: jalg.bfs_program(4), SOURCES4, False),
-    "cc": (algorithms.cc_program, jalg.cc_program, None, True),
-    "pagerank": (algorithms.pagerank_program, jalg.pagerank_program, None,
-                 False),
-}
-BACKENDS = {
-    "agent": ("agent", {}),
-    "agent_overlap": ("agent", {"overlap": True}),
-    "dense": ("dense", {}),
-    "pipelined": ("pipelined", {}),
-    "async_s1": ("async", {"staleness": 1}),
-    "async_s2": ("async", {"staleness": 2}),
-    "async_s3": ("async", {"staleness": 3}),
-    "null": ("null", {}),
-}
 FRONTIERS = ("dense", "compact", "auto")
 
 
@@ -93,10 +70,10 @@ def agent_graphs(graphs):
 def single_shard(graphs):
     """JAX single-shard results: name -> (vertex data, supersteps)."""
     refs = {}
-    for name, (_, jmk, source, undirected) in PROGRAMS.items():
+    for name, (_, _, source, undirected) in PROGRAMS.items():
         g = graphs[1] if undirected else graphs[0]
         part = JaxPartition.from_graph(to_graph(g, JaxGraph))
-        eng = JaxEngine(jmk())
+        eng = JaxEngine(make_program(jalg, name))
         st = eng.run(part, eng.init_state(part, source=source),
                      max_steps=PR_STEPS if name == "pagerank" else MAX_STEPS)
         refs[name] = (np.asarray(st.vertex_data), int(st.step))
@@ -104,9 +81,10 @@ def single_shard(graphs):
 
 
 def run_port(agent_graphs, name, backend, frontier, k):
-    mk, _, source, undirected = PROGRAMS[name]
+    _, _, source, undirected = PROGRAMS[name]
     exchange, kw = BACKENDS[backend]
-    eng = DistGREEngine(mk(), k, exchange=exchange, frontier=frontier,
+    eng = DistGREEngine(make_program(algorithms, name), k,
+                        exchange=exchange, frontier=frontier,
                         device="cpu", **kw)
     return eng.run(agent_graphs[undirected, k], source=source,
                    max_steps=PR_STEPS if name == "pagerank" else MAX_STEPS)
@@ -137,80 +115,13 @@ def test_backend_matches_single_shard(agent_graphs, single_shard, name,
 
 # ------------------------------------------- against JAX's DistGREEngine
 JAX_K = 4
-JAX_BACKENDS = ("agent", "agent_overlap", "dense", "pipelined", "async_s2",
-                "async_s3")
-JAX_CASES = [(n, b) for n in PROGRAMS for b in JAX_BACKENDS
-             if n != "pagerank" or b in ("agent", "agent_overlap", "dense")]
-
-JAX_SCRIPT = r"""
-import os, sys, time
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-sys.path.insert(0, sys.argv[1])
-t0 = time.perf_counter()
-import numpy as np
-import jax
-from repro.core import algorithms
-from repro.core.agent_graph import build_agent_graph
-from repro.core.dist_engine import DistGREEngine
-from repro.graph.generators import rmat_edges
-
-g = rmat_edges(scale=8, edge_factor=8, seed=1, weights=True).dedup()
-ags = {False: build_agent_graph(g, "hdrf", 4),
-       True: build_agent_graph(g.as_undirected(), "hdrf", 4)}
-mesh = jax.make_mesh((4,), ("graph",))
-programs = {"sssp": (algorithms.sssp_program, 0, False),
-            "bfs": (algorithms.bfs_program, 0, False),
-            "bfs_x4": (lambda: algorithms.bfs_program(4), SOURCES4, False),
-            "cc": (algorithms.cc_program, None, True),
-            "pagerank": (algorithms.pagerank_program, None, False)}
-backends = BACKENDS
-out = {}
-for name, backend in CASES:
-    mk, source, undirected = programs[name]
-    exchange, kw = backends[backend]
-    eng = DistGREEngine(mk(), mesh, ("graph",), exchange=exchange, **kw)
-    res, st = eng.run(ags[undirected], source=source,
-                      max_steps=20 if name == "pagerank" else 300)
-    out[name + "/" + backend + "/vd"] = res
-    out[name + "/" + backend + "/step"] = np.asarray(st.step)
-from repro.core.dist_engine import _squeeze0
-for ex in ("agent", "pipelined"):
-    for strat in PLAN_STRATEGIES:
-        eng = DistGREEngine(algorithms.sssp_program(), mesh, ("graph",),
-                            exchange=ex, frontier=strat,
-                            frontier_cap=PLAN_CAP)
-        topo = eng.device_topology(ags[False])
-        parts = ([topo.part] if ex == "agent"
-                 else [topo.tiles.part_remote, topo.tiles.part_local])
-        key = "plan/" + ex + "/" + strat
-        out[key + "/cap"] = np.asarray(eng.plan.frontier_cap)
-        out[key + "/strategy"] = np.asarray(eng.plan.strategy)
-        for t, p in enumerate(parts):
-            fp = eng.plan.frontier(_squeeze0(p))
-            out[key + "/" + str(t) + "/kind"] = np.asarray(fp.kind)
-            out[key + "/" + str(t) + "/caps"] = np.asarray(
-                -1 if fp.caps is None else fp.caps)
-np.savez(sys.argv[2], **out)
-print("JAX_DIST_S", time.perf_counter() - t0)
-"""
 
 
 @pytest.fixture(scope="module")
 def jax_dist(tmp_path_factory):
-    """JAX `DistGREEngine` results at k = 4 (one subprocess: the simulated
-    devices must be set before JAX starts)."""
-    path = tmp_path_factory.mktemp("jax_dist") / "dist.npz"
-    script = (JAX_SCRIPT.replace("SOURCES4", repr(SOURCES4))
-              .replace("PLAN_STRATEGIES", repr(PLAN_STRATEGIES))
-              .replace("PLAN_CAP", repr(PLAN_CAP))
-              .replace("BACKENDS", repr({b: BACKENDS[b]
-                                         for b in JAX_BACKENDS}))
-              .replace("CASES", repr(JAX_CASES)))
-    proc = subprocess.run([sys.executable, "-c", script, SRC, str(path)],
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    with np.load(path) as z:
-        return dict(z)
+    """JAX `DistGREEngine` results at k = 4 (one subprocess a test session,
+    shared with test_torch_dist_ranks.py: `torch_parity.jax_dist_results`)."""
+    return jax_dist_results(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
@@ -218,10 +129,6 @@ def agent_graphs_k4(graphs):
     g, gu = graphs
     return {(False, JAX_K): build_agent_graph(g, "hdrf", JAX_K),
             (True, JAX_K): build_agent_graph(gu, "hdrf", JAX_K)}
-
-
-PLAN_CAP = 16
-PLAN_STRATEGIES = ("dense", "flat", "compact")
 
 
 @pytest.mark.parametrize("strategy", PLAN_STRATEGIES)
@@ -468,17 +375,17 @@ def test_rerun_incremental_equals_cold(mutation_inputs, name, backend,
     result on the mutated graph (tests/test_conformance.py's mutation rows),
     through the delta ingress's fast path and its compaction."""
     from repro_torch.graph.structures import EdgeDelta
-    mk, jmk, source, undirected = PROGRAMS[name]
+    _, _, source, undirected = PROGRAMS[name]
     fields, ags, cold_part = mutation_inputs[undirected]
     ag = ags[path]
-    eng = DistGREEngine(mk(), JAX_K, exchange=backend, frontier_cap=16,
-                        device="cpu")
+    eng = DistGREEngine(make_program(algorithms, name), JAX_K,
+                        exchange=backend, frontier_cap=16, device="cpu")
     _, prev = eng.run(ag, source=source, max_steps=MAX_STEPS)
     new_ag, got, out, report = eng.rerun_incremental(
         ag, prev, EdgeDelta(**fields), source=source, max_steps=MAX_STEPS)
     assert report.compacted == (path == "compaction")
     assert np.array_equal(new_ag.old2new, ag.old2new)
-    jeng = JaxEngine(jmk())
+    jeng = JaxEngine(make_program(jalg, name))
     want = jeng.run(cold_part, jeng.init_state(cold_part, source=source),
                     MAX_STEPS)
     hold(name, got, np.asarray(want.vertex_data))
@@ -535,6 +442,5 @@ def test_split_tiles_pass_their_valid_lane_count(agent_graphs, monkeypatch,
         assert want <= spaces
     else:
         assert spaces == {K * ag.num_slots}
-    _, want_state = run_port(agent_graphs, "bfs_x4", "agent", "dense", K)
-    np.testing.assert_array_equal(got, original_order(
-        ag, want_state.vertex_data))
+    want, _ = run_port(agent_graphs, "bfs_x4", "agent", "dense", K)
+    np.testing.assert_array_equal(got, want)

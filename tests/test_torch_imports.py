@@ -41,7 +41,7 @@ DIST_MODULES = ("repro_torch.core.partition",
                 "repro_torch.core.partition_stream",
                 "repro_torch.core.agent_graph", "repro_torch.core.exchange",
                 "repro_torch.core.dist_engine", "repro_torch.dist",
-                "repro_torch.dist.comm")
+                "repro_torch.dist.comm", "repro_torch.dist.world")
 
 
 @pytest.mark.parametrize("module", DIST_MODULES)
@@ -238,3 +238,14 @@ def test_gnn_entry_points_raise_without_a_card():
     for arch in ("dimenet", "mace", "autoint"):
         with pytest.raises(KeyError, match="item 11"):
             get_config(arch)
+
+
+def test_world_refuses_cuda_without_a_card():
+    """`repro_torch.dist.world.run_world` defaults to CUDA and refuses it,
+    before any process starts, without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: CUDA is a valid request here")
+    from repro_torch.dist.world import run_world
+    for kw in ({}, {"backend": "gloo"}, {"backend": "nccl"}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_world(print, 2, **kw)

@@ -1,6 +1,12 @@
 """Shared helpers of the parity tests between the JAX package (`repro`) and
 its PyTorch port (`repro_torch`): both get the same numpy inputs, and
 results come back as numpy arrays."""
+import fcntl
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 
 PARTITION_ARRAYS = ("src", "dst", "edge_mask", "csr_indptr", "csr_eidx",
@@ -111,3 +117,121 @@ def report_arrays(report):
     return {k: np.asarray(getattr(report, k))
             for k in ("added_src", "added_dst", "removed_src", "removed_dst",
                       "compacted")}
+
+
+# ------------------------------------ the JAX DistGREEngine at k = 4, once
+# The graph and cases of tests/test_torch_dist_engine.py's comparison with
+# JAX's DistGREEngine, which tests/test_torch_dist_ranks.py shares: R-MAT
+# scale 8, edge factor 8, seed 1, HDRF onto 4 shards, four simulated CPU
+# devices in one subprocess.
+SRC = str(Path(__file__).resolve().parent.parent / "src")
+JAX_K = 4
+SOURCES4 = [0, 5, None, 77]
+# the distributed tests' programs, which each package resolves against its
+# own `algorithms` module (`make_program`): name -> (factory, its
+# arguments, source, whether it runs on the undirected graph)
+PROGRAMS = {"sssp": ("sssp_program", (), 0, False),
+            "bfs": ("bfs_program", (), 0, False),
+            "bfs_x4": ("bfs_program", (4,), SOURCES4, False),
+            "cc": ("cc_program", (), None, True),
+            "pagerank": ("pagerank_program", (), None, False)}
+# backend name -> (exchange, its engine options)
+BACKENDS = {"agent": ("agent", {}),
+            "agent_overlap": ("agent", {"overlap": True}),
+            "dense": ("dense", {}), "pipelined": ("pipelined", {}),
+            "async_s1": ("async", {"staleness": 1}),
+            "async_s2": ("async", {"staleness": 2}),
+            "async_s3": ("async", {"staleness": 3}),
+            "null": ("null", {})}
+JAX_BACKENDS = ("agent", "agent_overlap", "dense", "pipelined", "async_s2",
+                "async_s3")
+# the JAX package's own PageRank differs between its backends in the last
+# bit (ROADMAP Queue 3): held on the sync backends only
+JAX_CASES = [(n, b) for n in PROGRAMS for b in JAX_BACKENDS
+             if n != "pagerank" or b in ("agent", "agent_overlap", "dense")]
+
+
+def make_program(algorithms, name):
+    """`PROGRAMS[name]`'s program from a package's `algorithms` module."""
+    factory, args, _, _ = PROGRAMS[name]
+    return getattr(algorithms, factory)(*args)
+PLAN_CAP = 16
+PLAN_STRATEGIES = ("dense", "flat", "compact")
+
+JAX_SCRIPT = r"""
+import os, sys, time
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+sys.path.insert(0, sys.argv[1])
+t0 = time.perf_counter()
+import numpy as np
+import jax
+from repro.core import algorithms
+from repro.core.agent_graph import build_agent_graph
+from repro.core.dist_engine import DistGREEngine
+from repro.graph.generators import rmat_edges
+
+g = rmat_edges(scale=8, edge_factor=8, seed=1, weights=True).dedup()
+ags = {False: build_agent_graph(g, "hdrf", 4),
+       True: build_agent_graph(g.as_undirected(), "hdrf", 4)}
+mesh = jax.make_mesh((4,), ("graph",))
+programs = PROGRAMS
+backends = BACKENDS
+out = {}
+for name, backend in CASES:
+    factory, args, source, undirected = programs[name]
+    exchange, kw = backends[backend]
+    eng = DistGREEngine(getattr(algorithms, factory)(*args), mesh,
+                        ("graph",), exchange=exchange, **kw)
+    res, st = eng.run(ags[undirected], source=source,
+                      max_steps=20 if name == "pagerank" else 300)
+    out[name + "/" + backend + "/vd"] = res
+    out[name + "/" + backend + "/step"] = np.asarray(st.step)
+from repro.core.dist_engine import _squeeze0
+for ex in ("agent", "pipelined"):
+    for strat in PLAN_STRATEGIES:
+        eng = DistGREEngine(algorithms.sssp_program(), mesh, ("graph",),
+                            exchange=ex, frontier=strat,
+                            frontier_cap=PLAN_CAP)
+        topo = eng.device_topology(ags[False])
+        parts = ([topo.part] if ex == "agent"
+                 else [topo.tiles.part_remote, topo.tiles.part_local])
+        key = "plan/" + ex + "/" + strat
+        out[key + "/cap"] = np.asarray(eng.plan.frontier_cap)
+        out[key + "/strategy"] = np.asarray(eng.plan.strategy)
+        for t, p in enumerate(parts):
+            fp = eng.plan.frontier(_squeeze0(p))
+            out[key + "/" + str(t) + "/kind"] = np.asarray(fp.kind)
+            out[key + "/" + str(t) + "/caps"] = np.asarray(
+                -1 if fp.caps is None else fp.caps)
+np.savez(sys.argv[2], **out)
+print("JAX_DIST_S", time.perf_counter() - t0)
+"""
+
+
+def jax_dist_results(tmp_path_factory) -> dict:
+    """JAX `DistGREEngine`'s results of every `JAX_CASES` case (and the
+    frontier plans at `PLAN_CAP`) as a dict of numpy arrays.  The
+    subprocess runs once a test session: its `.npz` is kept in the
+    session's temporary directory, shared by the xdist workers, under a
+    file lock."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent                     # shared by the workers
+    path = root / "jax_dist_k4.npz"
+    with open(root / "jax_dist_k4.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            script = (JAX_SCRIPT.replace("PROGRAMS", repr(PROGRAMS))
+                      .replace("PLAN_STRATEGIES", repr(PLAN_STRATEGIES))
+                      .replace("PLAN_CAP", repr(PLAN_CAP))
+                      .replace("BACKENDS", repr({b: BACKENDS[b]
+                                                 for b in JAX_BACKENDS}))
+                      .replace("CASES", repr(JAX_CASES)))
+            part = root / f"jax_dist_k4.{os.getpid()}.npz"
+            proc = subprocess.run([sys.executable, "-c", script, SRC,
+                                   str(part)], capture_output=True,
+                                  text=True, timeout=600)
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            os.replace(part, path)
+    with np.load(path) as z:
+        return dict(z)
