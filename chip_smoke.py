@@ -6,7 +6,9 @@
 1. Starts the distributed phase's host ingress in a child process (step
    3b), prints the card's name and power limit and builds the three CUDA
    sources from `src/repro_torch/kernels/csrc/` with `nvcc` (sm_90a), one
-   `nvcc` per source, all started together.
+   `nvcc` per source, all started together.  Every phase ends with a
+   `phase_s <name>=<seconds>` line, and the run with one `phase_s` JSON
+   line of them all.
 2. Builds the Graph500 R-MAT graph (a=0.57, b=c=0.19, edge factor 16,
    seed 0, integer weights in [1, 65535]) at `--scale` and its partitions
    on the card, then holds the combine kernel against its plain PyTorch
@@ -220,11 +222,42 @@
    Then one GCN gradient pass over the 8 ranks (`rank_gcn`: the loss's
    count and the gradients summed over the ranks in rank order) within
    1e-5 (loss) and 1e-4 (gradients) of step 3f's stacked k = 8 pass, the
-   ranks bitwise equal to each other (`dist_rank_gcn`), and a world of one
+   ranks bitwise equal to each other (`dist_rank_gcn`); then, in the same
+   world (`rank_models`), step 3h's DimeNet gradient pass over the ranks
+   within the same bounds of the stacked pass, every rank's loss and
+   gradients equal (`dist_rank_dimenet`), AutoInt's serve_p99 batch
+   through `sharded_embedding_lookup` on each rank's 4,627,500 table rows,
+   bitwise the whole table's lookup, the logits within 1e-5
+   (`dist_rank_autoint`), and BFS x8 and SSSP x8 batchers over the
+   directed agent graph serving the first 16 BFS/SSSP queries of step
+   3d's stream, every answer's digest equal to the stacked k = 8
+   batchers' (computed after step 3e's `dist_serving`; p50/p99 latency,
+   queries a second, host reads a tick: `graph_serving_ranks`); a world of one
    NCCL rank whose every communicator call must equal `StackedComm(1)`'s
    bitwise (`dist_nccl_world`).  The `dist_ranks_world` line prints the
    spawn and init seconds of each rank, the parent's memory on the card
    before the spawn and each rank's peak.
+3h. After the GNN phase of step 3f, full width, every sum through K1:
+   DimeNet (6 blocks, d_hidden 128, n_bilinear 8, 7 spherical, 6
+   radial) and MACE (2 layers, d_hidden 128, l_max 2, correlation 3, 8
+   radial) on GNN_SHAPES' molecule batch: 128 `random_geometric_molecule`
+   graphs of 30 atoms and 64 edges (numpy seeds 0-127), species in
+   [0, 16) and planted targets (numpy seed 5), DimeNet's triplets from
+   `build_triplets`.  Per model a first MSE step with every combine call
+   (forward and backward) held against the plain version, EQ_TIMED_STEPS
+   timed steps of AdamW (`eq_step`: ms, peak memory, K1 launches against
+   `expected_eq_launches`), and the summed outputs' rotation and
+   translation invariance within the JAX package's bounds (1e-4 DimeNet,
+   1e-3 MACE, relative) (`dimenet_molecule`, `mace_molecule`).  AutoInt
+   on the `[37,020,000, 16]` table (`autoint`): serve_p99 logits (B =
+   512), a held then timed train_batch steps (B = 65,536; one K1 launch,
+   the table gradient), retrieval against 10^6 candidates, and
+   `sharded_embedding_lookup` over `StackedComm(8)` bitwise the whole
+   table's at both batch sizes.  Then DimeNet on 1,024 molecules (30,720
+   atoms, 65,536 edges) through the single-card forward and through
+   `dimenet_forward_sharded` on k = 8 HDRF shards stacked on the card:
+   loss within 1e-5 and gradients within 1e-4 of each leaf's largest
+   (`dimenet_sharded`).  Step 3g repeats it over the ranks.
 4. Attention kernel phase: the flash-attention kernel against its plain
    version at smollm-135m's prefill shape (B=4, S=2048, 3 kv heads x 3,
    H=64, causal, bf16), a ragged causal length (S=1000, bf16), float32
@@ -287,6 +320,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -373,16 +407,16 @@ def hold_combine(name, op, first, second, msgs, dst, num_segments):
     if op != "sum":
         if not torch.equal(first, plain):
             raise AssertionError(f"{name}: {op} is not bitwise equal")
-        return {"max_abs_err": 0.0, "max_rel_err": 0.0}
+        return {"max_abs_err": 0.0, "max_rel_err": 0.0, "mag_rel_err": 0.0}
     if not first.numel():
-        return {"max_abs_err": 0.0, "max_rel_err": 0.0}
+        return {"max_abs_err": 0.0, "max_rel_err": 0.0, "mag_rel_err": 0.0}
     # the float64 sum a block of columns at a time, so that its copy of
     # the messages stays within HOLD_F64_BYTES at the GNN path's [E, 100]
     first2 = first.reshape(first.shape[0], -1)
     plain2 = plain.reshape(plain.shape[0], -1)
     msgs2 = msgs.reshape(msgs.shape[0], first2.shape[1])
     cols = max(1, HOLD_F64_BYTES // max(8 * msgs2.shape[0], 1))
-    worst = abs_err = rel_err = plain_rel = 0.0
+    worst = abs_err = rel_err = plain_rel = mag_rel = 0.0
     for c in range(0, msgs2.shape[1], cols):
         block = msgs2[:, c:c + cols].double()
         exact = sc.segment_combine_plain(block, dst, num_segments, op)
@@ -394,6 +428,7 @@ def hold_combine(name, op, first, second, msgs, dst, num_segments):
         err = (first2[:, c:c + cols].double() - exact).abs()
         scale = exact.abs().clamp(min=1e-30)
         worst = max(worst, float((err - SUM_RTOL * mag).max()))
+        mag_rel = max(mag_rel, float((err / mag.clamp(min=1e-30)).max()))
         abs_err = max(abs_err, float(err.max()))
         rel_err = max(rel_err, float((err / scale).max()))
         plain_rel = max(plain_rel, float(
@@ -403,7 +438,7 @@ def hold_combine(name, op, first, second, msgs, dst, num_segments):
         raise AssertionError(f"{name}: sum off by more than rtol "
                              f"{SUM_RTOL} (excess {worst})")
     return {"max_abs_err": abs_err, "max_rel_err": rel_err,
-            "plain_f32_max_rel_err": plain_rel}
+            "mag_rel_err": mag_rel, "plain_f32_max_rel_err": plain_rel}
 
 
 def check_case(name, route, op, msgs, dst, seg_ptr, num_segments, reps):
@@ -2587,6 +2622,10 @@ def hold_recorded(name, route, args):
 # inputs (`hold_block`), by route, and the (route, op, width) of the held
 # calls: the kernels line reports both
 HELD_ERRS = {"dense": 0.0, "tile": 0.0}
+# the same calls' largest error over the float64 sum of the terms'
+# magnitudes (what SUM_RTOL bounds): the absolute error grows with the
+# values summed (DimeNet's gradients reach ~1e10 at random init)
+HELD_MAG_ERRS = {"dense": 0.0, "tile": 0.0}
 HELD_WIDTHS = set()
 
 
@@ -2604,6 +2643,7 @@ def hold_block(name, fn):
             e = hold_recorded(f"{name} call {sum(seen.values())}", route,
                               args)
         HELD_ERRS[route] = max(HELD_ERRS[route], e["max_abs_err"])
+        HELD_MAG_ERRS[route] = max(HELD_MAG_ERRS[route], e["mag_rel_err"])
         m = args["msgs"]
         d = int(np.prod(m.shape[1:])) if m.dim() > 1 else 1
         HELD_WIDTHS.add((route, args["op"], d))
@@ -3012,18 +3052,29 @@ def rank_gcn(comm, ag, work: Path, params_np):
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
 
 
-def rank_main(comm, work, source, gcn_params):
-    """One rank of the `dist_ranks` world: the programs, then the GCN
-    pass; returns their records and this process's held-call errors."""
+def rank_main(comm, work, source, gcn_params, stream):
+    """One rank of the `dist_ranks` world: the programs, the GCN pass,
+    then this slice's DimeNet pass, AutoInt lookup and serving stream
+    (`rank_models`); returns their records and this process's held-call
+    errors."""
     work = Path(work)
     free, total = torch.cuda.mem_get_info(comm.device)
     ags = {key: load_agent_graph(work / key)
            for key in ("directed", "undirected")}
+    t0 = time.perf_counter()
     runs = rank_runs(comm, ags, work, source)
+    t1 = time.perf_counter()
     gcn = rank_gcn(comm, ags["directed"], work, gcn_params)
-    return {"runs": runs, "gcn": gcn, "device_free_at_start": free,
-            "device_total": total, "held_errs": dict(HELD_ERRS),
-            "held_widths": sorted(HELD_WIDTHS)}
+    del ags
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    models = rank_models(comm, work, stream)
+    return {"runs": runs, "gcn": gcn, "models": models,
+            "device_free_at_start": free, "device_total": total,
+            "held_errs": dict(HELD_ERRS), "held_widths": sorted(HELD_WIDTHS),
+            "held_mag_errs": dict(HELD_MAG_ERRS),
+            "phase_s": {"runs": t1 - t0, "gcn": t2 - t1,
+                        "models": time.perf_counter() - t2}}
 
 
 def nccl_calls(comm):
@@ -3062,7 +3113,7 @@ def nccl_calls(comm):
 
 
 def dist_ranks_phase(ags, graph, ref, source, finals, gcn_stacked,
-                     gcn_params0):
+                     gcn_params0, work: Path, stream, stacked_models):
     """The distributed path on DIST_K processes, one shard a rank
     (`repro_torch.dist.world`, gloo over CUDA tensors on the one card):
     the agent graphs and GCN's node rows go to `.npy` files once, each
@@ -3074,30 +3125,31 @@ def dist_ranks_phase(ags, graph, ref, source, finals, gcn_stacked,
     equal to the stacked run's, the ranks' `values` adding up to the
     stacked count, K1 launched on every rank (K2 on some rank of the
     compacted BFS), every rank's held calls; the GCN loss and gradients
-    against `gnn_dist_run`'s within GNN_LOSS_RTOL / GNN_GRAD_TOL.  Then an
-    NCCL world of one rank (`nccl_calls`).  Returns the ranks' combine
-    launches, summed by route."""
+    against `gnn_dist_run`'s within GNN_LOSS_RTOL / GNN_GRAD_TOL; then
+    `rank_models`' records against `stacked_models` (`check_rank_models`).
+    `work` holds this slice's inputs already (`dimenet_sharded_phase`,
+    `autoint_phase`).  Then an NCCL world of one rank (`nccl_calls`).
+    Returns the ranks' combine launches, summed by route."""
     from repro_torch.dist.world import run_world
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        work = Path(tmp)
-        t0 = time.perf_counter()
-        for key, ag in ags.items():
-            save_agent_graph(ag, work / key)
-        write_gcn_inputs(graph, work)
-        write_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        free, total = torch.cuda.mem_get_info()
-        parent = {"allocated": torch.cuda.memory_allocated(),
-                  "reserved": torch.cuda.memory_reserved(),
-                  "device_free": free, "device_total": total}
-        t0 = time.perf_counter()
-        done = run_world(rank_main, DIST_K,
-                         (str(work), source, tree_numpy(gcn_params0)),
-                         backend="gloo", device="cuda", timeout=RANK_TIMEOUT)
-        world_s = time.perf_counter() - t0
-        results = {run_key(*r): np.load(work / f"result {run_key(*r)}.npy")
-                   for r in RANK_RUNS}
+    t0 = time.perf_counter()
+    for key, ag in ags.items():
+        save_agent_graph(ag, work / key)
+    write_gcn_inputs(graph, work)
+    write_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    parent = {"allocated": torch.cuda.memory_allocated(),
+              "reserved": torch.cuda.memory_reserved(),
+              "device_free": free, "device_total": total}
+    t0 = time.perf_counter()
+    done = run_world(rank_main, DIST_K,
+                     (str(work), source, tree_numpy(gcn_params0),
+                      stream),
+                     backend="gloo", device="cuda", timeout=RANK_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    results = {run_key(*r): np.load(work / f"result {run_key(*r)}.npy")
+               for r in RANK_RUNS}
     ranks = [r.value for r in done]
     peaks = [max([x["max_memory_allocated"] for x in v["runs"]]
                  + [v["gcn"]["max_memory_allocated"]]) for v in ranks]
@@ -3105,6 +3157,7 @@ def dist_ranks_phase(ags, graph, ref, source, finals, gcn_stacked,
         "ranks": DIST_K, "backend": "gloo", "write_inputs_s": write_s,
         "world_s": world_s, "spawn_s": [r.spawn_s for r in done],
         "init_s": [r.init_s for r in done], "parent_memory": parent,
+        "rank_phase_s": [v["phase_s"] for v in ranks],
         "rank_device_free_at_start": [v["device_free_at_start"]
                                       for v in ranks],
         "rank_max_memory_allocated": peaks,
@@ -3159,6 +3212,8 @@ def dist_ranks_phase(ags, graph, ref, source, finals, gcn_stacked,
     for v in ranks:
         for route, e in v["held_errs"].items():
             HELD_ERRS[route] = max(HELD_ERRS[route], e)
+        for route, e in v["held_mag_errs"].items():
+            HELD_MAG_ERRS[route] = max(HELD_MAG_ERRS[route], e)
         HELD_WIDTHS.update(tuple(w) for w in v["held_widths"])
     gcn = [v["gcn"] for v in ranks]
     loss0, grads0 = gcn_stacked
@@ -3183,6 +3238,9 @@ def dist_ranks_phase(ags, graph, ref, source, finals, gcn_stacked,
             or min(g["launches_backward"] for g in gcn) <= 0):
         raise AssertionError(f"ranks GCN against the stacked pass: loss "
                              f"{loss_err}, per leaf {errs}, agree {same}")
+    for route, n in check_rank_models([v["models"] for v in ranks],
+                                      stacked_models).items():
+        launches[route] += n
     t0 = time.perf_counter()
     nccl = run_world(nccl_calls, 1, backend="nccl", device="cuda",
                      timeout=RANK_TIMEOUT)[0]
@@ -3193,6 +3251,626 @@ def dist_ranks_phase(ags, graph, ref, source, finals, gcn_stacked,
                              "differ from StackedComm(1)")
     log(f"dist_ranks_phase_s={time.perf_counter() - t_phase:.3f} "
         f"launches={json.dumps(launches)}")
+    return launches
+
+
+# ------------------------------------------ equivariant GNNs and AutoInt
+# GNN_SHAPES' molecule: 128 graphs of 30 atoms and 64 edges; the sharded
+# pass takes 1024 of them (30,720 atoms, 65,536 edges) on DIST_K shards
+EQ_GRAPHS, EQ_ATOMS, EQ_EDGES, EQ_SPECIES = 128, 30, 64, 16
+EQ_SHARDED_GRAPHS = 1024
+EQ_TARGET_SEED = 5
+EQ_TIMED_STEPS = 3
+EQ_LR = 1e-3
+# rotation and translation invariance of the summed outputs, the JAX
+# package's own bounds (tests/test_equivariant.py): |Σo - Σo'| below
+# tol·(|Σo| + 1)
+EQ_INVARIANCE_TOL = {"dimenet": 1e-4, "mace": 1e-3}
+AUTOINT_SEED = 7
+AUTOINT_REPS = 10
+AUTOINT_CANDIDATES = 1_000_000
+DEV = "cuda"                 # the device of this section's phases
+
+
+def molecule_union(n_graphs):
+    """`n_graphs` `random_geometric_molecule`s (numpy seeds 0..n-1) laid
+    out one after another, species in [0, EQ_SPECIES) and planted targets
+    (a per-species value plus noise, numpy seed EQ_TARGET_SEED), and the
+    union's triplets (`build_triplets`, no padding): numpy arrays."""
+    from repro_torch.graph.generators import random_geometric_molecule
+    from repro_torch.models import dimenet
+    pos, src, dst = [], [], []
+    for g in range(n_graphs):
+        p, s, d = random_geometric_molecule(EQ_ATOMS, EQ_EDGES, seed=g)
+        pos.append(p)
+        src.append(s + g * EQ_ATOMS)
+        dst.append(d + g * EQ_ATOMS)
+    v = n_graphs * EQ_ATOMS
+    rng = np.random.default_rng(EQ_TARGET_SEED)
+    species = rng.integers(0, EQ_SPECIES, v).astype(np.int32)
+    per_species = rng.normal(size=EQ_SPECIES).astype(np.float32)
+    target = (per_species[species]
+              + 0.1 * rng.normal(size=v).astype(np.float32))[:, None]
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    t0 = time.perf_counter()
+    kj, ji, tm = dimenet.build_triplets(src, dst, v)
+    return {"pos": np.concatenate(pos), "species": species, "src": src,
+            "dst": dst, "edge_mask": np.ones(src.shape[0], bool),
+            "tri_kj": kj, "tri_ji": ji, "tri_mask": tm,
+            "target": target.astype(np.float32),
+            "triplets_s": time.perf_counter() - t0}
+
+
+MOL_KEYS = ("pos", "species", "src", "dst", "edge_mask", "tri_kj", "tri_ji",
+            "tri_mask", "target")
+
+
+def mol_tensors(mol, dev):
+    return {k: torch.from_numpy(np.ascontiguousarray(mol[k])).to(dev)
+            for k in MOL_KEYS}
+
+
+def eq_model(arch):
+    """`(cfg, forward(params, m, routes, pos=None), routes(m), init)` of
+    the dimenet or mace config at full width over molecule tensors `m`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import dimenet, mace
+    cfg = get_config(arch)[0]
+    if arch == "dimenet":
+        def fwd(params, m, routes, pos=None):
+            return dimenet.dimenet_forward(
+                params, m["pos"] if pos is None else pos, m["species"],
+                m["src"], m["dst"], m["edge_mask"], m["tri_kj"],
+                m["tri_ji"], m["tri_mask"], cfg, routes=routes)
+
+        def routes(m):
+            return dimenet.DimeNetRoutes.build(
+                m["species"], m["src"], m["dst"], m["tri_kj"], m["tri_ji"],
+                m["tri_mask"], m["pos"].shape[0], EQ_SPECIES)
+        return cfg, fwd, routes, dimenet.init_dimenet
+
+    def fwd(params, m, routes, pos=None):
+        return mace.mace_forward(params, m["pos"] if pos is None else pos,
+                                 m["species"], m["src"], m["dst"],
+                                 m["edge_mask"], cfg, routes=routes)
+
+    def routes(m):
+        return mace.MaceRoutes.build(m["species"], m["src"], m["dst"],
+                                     m["pos"].shape[0], EQ_SPECIES)
+    return cfg, fwd, routes, mace.init_mace
+
+
+def expected_eq_launches(arch, cfg):
+    """K1 launches of one step, forward and backward.  DimeNet: forward two
+    sums a block (triplet → edge, edge → node); backward the checkpointed
+    block's recomputed triplet sum, the `m[tri_kj]` gather's and the two
+    embedding gathers'.  MACE: forward one sum a path a layer; backward
+    each path's sum once more (the checkpointed layer's recompute; the
+    path's own checkpoint inside it does not run it a third time), the
+    `h[src]` gathers of the paths whose input needs a gradient (l_in = 0
+    only, in the first layer: h[1], h[2] start at zero) and the
+    embedding's."""
+    from repro_torch.nn.equivariant import valid_paths
+    L = cfg.n_layers
+    if arch == "dimenet":
+        return 2 * L, 2 * L + 2
+    paths = valid_paths(cfg.l_max)
+    P = len(paths)
+    first = sum(l1 == 0 for l1, _, _ in paths)
+    return L * P, L * P + (L - 1) * P + first + 1
+
+
+def eq_step(fwd, params, m, routes):
+    """MSE of the node outputs against the targets and its backward;
+    `(loss, forward K1 launches, all K1 launches)`, the counts set to 0
+    just before."""
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.models import gnn
+    for p in gnn.parameters(params):
+        p.grad = None
+    sc.reset_launches()
+    loss = ((fwd(params, m, routes) - m["target"]) ** 2).mean()
+    f = sc.LAUNCHES["dense"]
+    loss.backward()
+    return loss.detach(), f, dict(sc.LAUNCHES)
+
+
+def eq_molecule_run(arch, mol, counted):
+    """One equivariant model at full width on the molecule batch: a first
+    step with every combine call (forward and backward) held against the
+    plain version, then EQ_TIMED_STEPS timed steps (forward, MSE,
+    backward, AdamW; K1 launches against `expected_eq_launches`, peak
+    memory), then the invariance of the summed outputs under a rotation
+    and a translation (EQ_INVARIANCE_TOL)."""
+    from repro_torch.models import gnn
+    from repro_torch.nn.equivariant import _random_rotation
+    from repro_torch.optim import AdamW
+    t0 = time.perf_counter()
+    cfg, fwd, make_routes, init = eq_model(arch)
+    m = mol_tensors(mol, DEV)
+    routes = make_routes(m)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    params = init(gen, cfg, n_species=EQ_SPECIES, device=DEV)
+    opt = AdamW(gnn.parameters(params), lr=EQ_LR)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    box = []
+    held = hold_block(f"{arch} step 0", lambda: box.append(
+        eq_step(fwd, params, m, routes)))
+    loss0, _, _ = box.pop()
+    opt.step()
+    torch.cuda.empty_cache()
+    want = expected_eq_launches(arch, cfg)
+    steps = []
+    for i in range(EQ_TIMED_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, f, total = eq_step(fwd, params, m, routes)
+        opt.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = (f, total["dense"] - f)
+        rec = {"run": arch, "step": i, "loss": float(loss), "ms": ms,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches_forward": got[0], "launches_backward": got[1],
+               "expected_forward": want[0], "expected_backward": want[1]}
+        log("eq_step", json.dumps(rec))
+        if got != want or total["tile"] or total["compact"]:
+            raise AssertionError(f"{arch}: K1 launches {got}, expected "
+                                 f"{want}; counts {total}")
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"{arch}: loss {rec['loss']}")
+        counted[arch] += total["dense"]
+        steps.append(rec)
+    with torch.no_grad():
+        R = torch.from_numpy(_random_rotation(np.random.default_rng(3))).to(
+            DEV, torch.float32)
+        a = fwd(params, m, routes).sum()
+        b = fwd(params, m, routes, pos=m["pos"] @ R.T - 1.0).sum()
+        inv = float((a - b).abs() / (a.abs() + 1.0))
+    rec = {"run": arch, "graphs": EQ_GRAPHS, "atoms": int(m["pos"].shape[0]),
+           "edges": int(m["src"].shape[0]),
+           "triplets": int(m["tri_mask"].sum()), "layers": cfg.n_layers,
+           "d_hidden": cfg.d_hidden, "setup_s": setup_s,
+           "loss0": float(loss0), "held": held,
+           "ms": [s["ms"] for s in steps],
+           "max_memory_allocated": max(s["max_memory_allocated"]
+                                       for s in steps),
+           "launches_a_step": list(want),
+           "invariance_rel_err": inv,
+           "invariance_tol": EQ_INVARIANCE_TOL[arch]}
+    log(f"{arch}_molecule", json.dumps(rec))
+    if not math.isfinite(inv) or inv > EQ_INVARIANCE_TOL[arch]:
+        raise AssertionError(f"{arch}: rotation/translation changed the "
+                             f"summed output by {inv} (relative)")
+    del params, opt, routes, m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sum_leaf_grads(params):
+    from repro_torch.models import gnn
+    return [p.grad.detach().clone() for p in gnn.parameters(params)]
+
+
+def dimenet_sharded_pass(params_np, mol, comm, dev):
+    """A DimeNet gradient pass through `dimenet_forward_sharded` over the
+    shards `comm` holds: the MSE over every atom (each process's share
+    summed in rank order), gradients summed over the processes.  Returns
+    `(loss, grads, record)`."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.models import dimenet, gnn
+    cfg = get_config("dimenet")[0]
+    t0 = time.perf_counter()
+    sh = dimenet.shard_molecule_graph(
+        *(mol[k] for k in MOL_KEYS[:-1]), cfg, comm, n_species=EQ_SPECIES,
+        device=dev)
+    params = dimenet.params_from_numpy(params_np, cfg, device=dev)
+    target = sh.node_rows(torch.from_numpy(mol["target"]).to(dev))
+    real = sh.node_masters[:, None]
+    torch.cuda.synchronize(dev)
+    layout_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    sc.reset_launches()
+    comm.values = 0
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = dimenet.dimenet_forward_sharded(params, sh, cfg)
+    share = torch.where(real, (out - target) ** 2, 0.0).sum() / \
+        mol["pos"].shape[0]
+    fwd = sc.LAUNCHES["dense"]
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    share.backward()
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    gnn.psum_grads(params, comm)
+    loss = gnn.psum_shares(comm, share.detach())
+    torch.cuda.synchronize(dev)
+    t3 = time.perf_counter()
+    ms = (t3 - t0) * 1e3
+    rec = {"k": comm.k, "layout_s": layout_s, "ms": ms,
+           "forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
+           "psum_ms": (t3 - t2) * 1e3,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "launches_forward": fwd,
+           "launches_backward": sc.LAUNCHES["dense"] - fwd,
+           "values": comm.values,
+           "V_c_tri": int(sh.ag_tri.num_combiner.sum()),
+           "V_c_node": int(sh.ag_node.num_combiner.sum()),
+           "triplets": int(sh.tri_mask.sum())}
+    return loss, sum_leaf_grads(params), rec
+
+
+def dimenet_sharded_phase(work: Path):
+    """DimeNet on EQ_SHARDED_GRAPHS molecules: one gradient pass through
+    the port's single-card `dimenet_forward` (from parameters drawn on the
+    card, seed 8), then the same through `dimenet_forward_sharded` on
+    DIST_K HDRF shards stacked on the card (`StackedComm`): loss within
+    GNN_LOSS_RTOL and gradients within GNN_GRAD_TOL of each leaf's largest
+    magnitude.  Writes the union and the parameters to `work` for the
+    pass over ranks; returns the stacked loss and gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.comm import StackedComm
+    from repro_torch.models import dimenet
+    t_phase = time.perf_counter()
+    mol = molecule_union(EQ_SHARDED_GRAPHS)
+    cfg = get_config("dimenet")[0]
+    params = dimenet.init_dimenet(torch.Generator(device=DEV).manual_seed(8),
+                                  cfg, n_species=EQ_SPECIES, device=DEV)
+    params_np = tree_numpy(params)
+    _, fwd, make_routes, _ = eq_model("dimenet")
+    m = mol_tensors(mol, DEV)
+    torch.cuda.reset_peak_memory_stats()
+    (loss1, _, _), single_ms = timed(lambda: eq_step(
+        fwd, params, m, make_routes(m)))
+    grads1 = sum_leaf_grads(params)
+    single_peak = torch.cuda.max_memory_allocated()
+    del m, params
+    torch.cuda.empty_cache()
+    loss_first, _, first = dimenet_sharded_pass(params_np, mol,
+                                                StackedComm(DIST_K), DEV)
+    loss, grads, rec = dimenet_sharded_pass(params_np, mol,
+                                            StackedComm(DIST_K), DEV)
+    rec.update({"first_pass_ms": first["ms"],
+                "repeats_bitwise": bool(torch.equal(loss, loss_first))})
+    loss_err = abs(float(loss) - float(loss1)) / abs(float(loss1))
+    errs = leaf_errors(grads, [g.double() for g in grads1])
+    rec.update({"graphs": EQ_SHARDED_GRAPHS, "atoms": mol["pos"].shape[0],
+                "edges": int(mol["src"].shape[0]), "loss": float(loss),
+                "single_card_loss": float(loss1), "loss_rel_err": loss_err,
+                "grad_max_err": max(errs), "single_card_ms": single_ms,
+                "single_card_max_memory_allocated": single_peak,
+                "triplets_s": mol["triplets_s"]})
+    log("dimenet_sharded", json.dumps(rec))
+    if (loss_err > GNN_LOSS_RTOL or max(errs) > GNN_GRAD_TOL
+            or not rec["repeats_bitwise"]):
+        raise AssertionError(f"DimeNet on {DIST_K} stacked shards against "
+                             f"the single card: {rec}, per leaf {errs}")
+    np.savez(work / "dimenet_mol.npz", **{k: mol[k] for k in MOL_KEYS})
+    with open(work / "dimenet_params.pkl", "wb") as f:
+        pickle.dump(params_np, f)
+    torch.cuda.empty_cache()
+    log(f"dimenet_sharded_phase_s={time.perf_counter() - t_phase:.3f}")
+    return loss, grads, rec
+
+
+def autoint_phase(work: Path):
+    """AutoInt at full width: the `[37,020,000, 16]` f32 table (2.37 GB,
+    `init_autoint` from a CUDA generator, seed AUTOINT_SEED) with
+    RECSYS_SHAPES' batches from `synth_batch`.  serve_p99 (B = 512): the
+    logits (finite), their CUDA-event median; train_batch (B = 65,536):
+    one step with every combine call held (the table gradient's K1), then
+    EQ_TIMED_STEPS timed steps of AdamW (one K1 launch each);
+    retrieval_cand: one query against AUTOINT_CANDIDATES candidates; and
+    `sharded_embedding_lookup` over `StackedComm(DIST_K)` (4,627,500 rows a
+    shard) bitwise equal to the whole-table lookup at both batch sizes.
+    Writes the table and the serve batch to `work` for the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.dist.comm import StackedComm
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.models import autoint, gnn
+    from repro_torch.nn.embedding import (embedding_lookup,
+                                          sharded_embedding_lookup)
+    from repro_torch.optim import AdamW
+    t_phase = time.perf_counter()
+    cfg = get_config("autoint")[0]
+    shapes = {s.name: s for s in RECSYS_SHAPES}
+    gen = torch.Generator(device=DEV).manual_seed(AUTOINT_SEED)
+    t0 = time.perf_counter()
+    params = autoint.init_autoint(gen, cfg, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serve = autoint.synth_batch(gen, cfg, shapes["serve_p99"].batch)
+    train = autoint.synth_batch(gen, cfg, shapes["train_batch"].batch)
+    rec = {"rows": cfg.total_rows(), "embed_dim": cfg.embed_dim,
+           "table_bytes": params["table"].numel() * 4, "init_s": init_s}
+    with torch.no_grad():
+        logits = autoint.autoint_logits(params, serve["ids"], cfg)
+        if logits.shape != (serve["ids"].shape[0],) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"autoint serve logits {logits.shape}")
+        rec["serve_p99_ms"] = cuda_ms(
+            lambda: autoint.autoint_logits(params, serve["ids"], cfg),
+            AUTOINT_REPS)
+        # the row-sharded lookup: DIST_K stacked shards of the table
+        shards = params["table"].detach().reshape(DIST_K, -1, cfg.embed_dim)
+        comm = StackedComm(DIST_K)
+        for name, b in (("serve_p99", serve), ("train_batch", train)):
+            whole = embedding_lookup(params["table"].detach(), b["ids"])
+            got = sharded_embedding_lookup(shards, b["ids"], comm)
+            if not torch.equal(got, whole):
+                raise AssertionError(f"sharded lookup at {name} differs "
+                                     "from the whole table's")
+            rec[f"sharded_lookup_{name}_bitwise"] = True
+            del whole, got
+        rec["sharded_lookup_serve_ms"] = cuda_ms(
+            lambda: sharded_embedding_lookup(shards, serve["ids"], comm),
+            AUTOINT_REPS)
+        del shards
+        # retrieval: one query against a million candidates
+        rg = torch.Generator(device=DEV).manual_seed(AUTOINT_SEED + 1)
+        cand = torch.randn((AUTOINT_CANDIDATES, cfg.d_attn), generator=rg,
+                           device=DEV)
+        proj = torch.randn((cfg.n_sparse * cfg.d_attn, cfg.d_attn),
+                           generator=rg, device=DEV) * 0.05
+        q = serve["ids"][:1]
+        scores = autoint.retrieval_scores(params, q, cand, proj, cfg)
+        if scores.shape != (AUTOINT_CANDIDATES,) or not bool(
+                torch.isfinite(scores).all()):
+            raise AssertionError("autoint retrieval scores")
+        rec["retrieval_ms"] = cuda_ms(
+            lambda: autoint.retrieval_scores(params, q, cand, proj, cfg),
+            AUTOINT_REPS)
+        del cand, proj, scores
+    np.save(work / "autoint_table.npy", params["table"].detach().cpu().numpy())
+    np.save(work / "autoint_serve_ids.npy", serve["ids"].cpu().numpy())
+    np.save(work / "autoint_serve_logits.npy", logits.cpu().numpy())
+    with open(work / "autoint_params.pkl", "wb") as f:
+        pickle.dump({k: tree_numpy(v) for k, v in params.items()
+                     if k != "table"}, f)
+    # training: one held step, then timed AdamW steps
+    opt = AdamW(gnn.parameters(params), lr=EQ_LR)
+
+    def step():
+        for p in gnn.parameters(params):
+            p.grad = None
+        sc.reset_launches()
+        loss = autoint.autoint_loss(params, train, cfg)
+        loss.backward()
+        return loss.detach()
+
+    rec["held"] = hold_block("autoint train step 0", step)
+    opt.step()
+    torch.cuda.empty_cache()
+    steps = []
+    for i in range(EQ_TIMED_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        opt.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(sc.LAUNCHES)
+        steps.append({"step": i, "loss": float(loss), "ms": ms,
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated(),
+                      "launches": launches})
+        if launches != {"dense": 1, "tile": 0, "compact": 0} or \
+                not math.isfinite(float(loss)):
+            raise AssertionError(f"autoint train step {i}: {steps[-1]}")
+    rec["train_steps"] = steps
+    rec["train_ms"] = [s["ms"] for s in steps]
+    log("autoint", json.dumps(rec))
+    del params, opt, train, serve
+    torch.cuda.empty_cache()
+    log(f"autoint_phase_s={time.perf_counter() - t_phase:.3f}")
+    return rec, len(steps)
+
+
+SERVE_RANK_QUERIES = 16
+SERVE_RANK_KINDS = ("bfs", "sssp")
+
+
+def rank_serving_stream(stream):
+    """The first SERVE_RANK_QUERIES queries of the serving stream whose
+    kind is BFS or SSSP, in order."""
+    return [x for x in stream
+            if x[1] in SERVE_RANK_KINDS][:SERVE_RANK_QUERIES]
+
+
+def serve_ranks_stream(name, ag, stream, comm, dev):
+    """BFS x8 and SSSP x8 batchers (SERVE_STEPS_PER_TICK supersteps a tick,
+    agent exchange) on the shards `comm` holds, driven through the stream
+    by arrival rounds: `(per-query sha1 of the answer in submission order,
+    serving record)`."""
+    import hashlib
+    from repro_torch.core import algorithms
+    from repro_torch.core.dist_engine import DistGREEngine
+    from repro_torch.core.frontier import HOST_READS as FRONTIER_READS
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.serving import GraphQueryBatcher, ServingFrontend
+    factories = {"bfs": algorithms.bfs_program,
+                 "sssp": algorithms.sssp_program}
+    t0 = time.perf_counter()
+    fe = ServingFrontend({
+        kind: GraphQueryBatcher(
+            DistGREEngine(factories[kind](SERVE_LANES), ag.k,
+                          exchange="agent", frontier=SERVE_FRONTIER[kind],
+                          device=dev, comm=comm),
+            ag, steps_per_tick=SERVE_STEPS_PER_TICK)
+        for kind in SERVE_RANK_KINDS})
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    sc.reset_launches()
+    FRONTIER_READS["frontier_counts"] = 0
+    sc.HOST_READS["compact_total"] = 0
+    queries, rounds, wall_s, _ = drive_stream(fe, stream)
+    rec = serving_record(name, queries, rounds, wall_s,
+                         list(fe.batchers.values()))
+    rec.update({"k": ag.k, "setup_s": setup_s,
+                "launches": dict(sc.LAUNCHES)})
+    digests = []
+    for q in queries:
+        if q.status != "done":
+            raise AssertionError(f"serving over shards: query {q.uid} "
+                                 f"{q.status}")
+        digests.append(hashlib.sha1(
+            str(q.result.dtype).encode() + q.result.tobytes()).hexdigest())
+    return digests, rec
+
+
+def rank_models(comm, work: Path, stream):
+    """A rank's part of this slice's rank phases, in the `dist_ranks`
+    world: the DimeNet gradient pass over the ranks
+    (`dimenet_sharded_pass` on `dimenet_sharded_phase`'s union and
+    parameters), AutoInt's serve_p99 batch through
+    `sharded_embedding_lookup` on the rank's 4,627,500 table rows (read
+    from `autoint_phase`'s file), and the BFS x8 / SSSP x8 serving stream
+    (`serve_ranks_stream`).  Returns their records; rank 0 also the
+    DimeNet gradients."""
+    import hashlib
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.models import autoint, gnn
+    from repro_torch.nn.embedding import sharded_embedding_lookup
+    dev = comm.device
+    out = {}
+    with np.load(work / "dimenet_mol.npz") as z:
+        mol = dict(z)
+    with open(work / "dimenet_params.pkl", "rb") as f:
+        params_np = pickle.load(f)
+    # an untimed first pass (first-use costs), then the timed one, which
+    # must repeat it bitwise
+    loss1, _, rec1 = dimenet_sharded_pass(params_np, mol, comm, dev)
+    loss, grads, rec = dimenet_sharded_pass(params_np, mol, comm, dev)
+    rec.update({"loss": float(loss), "first_pass_ms": rec1["ms"],
+                "first_pass_split_ms": {k: rec1[k] for k in (
+                    "forward_ms", "backward_ms", "psum_ms")},
+                "repeats_bitwise": bool(torch.equal(loss, loss1))})
+    rec["digest"] = hashlib.sha1(b"".join(
+        g.cpu().numpy().tobytes() for g in grads)).hexdigest()
+    if comm.rank == 0:
+        rec["grads"] = [g.cpu().numpy() for g in grads]
+    out["dimenet"] = rec
+    del grads
+    torch.cuda.empty_cache()
+    # AutoInt: the rank's rows of the table, the serve batch
+    cfg = get_config("autoint")[0]
+    table = np.load(work / "autoint_table.npy", mmap_mode="r")
+    rows = table.shape[0] // comm.k
+    mine = torch.from_numpy(np.array(
+        table[comm.rank * rows:(comm.rank + 1) * rows])).to(dev)
+    ids_np = np.load(work / "autoint_serve_ids.npy")
+    ids = torch.from_numpy(ids_np).to(dev)
+    with open(work / "autoint_params.pkl", "rb") as f:
+        params = gnn.leaves_from_numpy(pickle.load(f), dev)
+    params["table"] = None           # the lookup reads the rank's rows
+    shard = mine.reshape(1, rows, -1)
+    sc.reset_launches()
+    with torch.no_grad():
+        got = sharded_embedding_lookup(shard, ids, comm)
+        want = np.asarray(table[ids_np.reshape(-1)]).reshape(
+            tuple(ids_np.shape) + (cfg.embed_dim,))
+        logits = autoint.autoint_logits(
+            params, ids, cfg,
+            lookup_fn=lambda _, i: sharded_embedding_lookup(shard, i, comm))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        sharded_embedding_lookup(shard, ids, comm)
+        torch.cuda.synchronize(dev)
+        lookup_ms = (time.perf_counter() - t0) * 1e3
+    ref = np.load(work / "autoint_serve_logits.npy")
+    lg = logits.cpu().numpy()
+    out["autoint"] = {
+        "rows": rows, "lookup_bitwise": bool(np.array_equal(
+            got.cpu().numpy(), want)),
+        "logits_max_rel_err": float(np.max(np.abs(lg - ref))
+                                    / np.max(np.abs(ref))),
+        "logits_bitwise": bool(np.array_equal(lg, ref)),
+        "lookup_ms": lookup_ms}
+    del mine, shard, got, logits, table
+    torch.cuda.empty_cache()
+    # serving: BFS x8 and SSSP x8 over the directed agent graph
+    ag = load_agent_graph(work / "directed")
+    digests, rec = serve_ranks_stream("ranks", ag, stream, comm, dev)
+    rec["digests"] = digests
+    out["serving"] = rec
+    return out
+
+
+RANK_AUTOINT_RTOL = 1e-5   # logits over ranks against the card's own
+
+
+def check_rank_models(models, stacked):
+    """Hold `rank_models`' records of every rank against the stacked
+    passes: DimeNet's loss within GNN_LOSS_RTOL and gradients within
+    GNN_GRAD_TOL of each leaf's largest (the GCN pass's bounds; the
+    measured errors printed), every rank's loss and gradients the same;
+    AutoInt's lookup bitwise the whole table's on every rank, the logits
+    within RANK_AUTOINT_RTOL; every served answer's digest equal to the
+    stacked batcher's.  Returns the ranks' K1 launches of these passes."""
+    launches = {"dense": 0, "tile": 0, "compact": 0}
+    d = [m["dimenet"] for m in models]
+    loss0, grads0, srec = stacked["dimenet"]
+    loss_err = abs(d[0]["loss"] - float(loss0)) / abs(float(loss0))
+    errs = leaf_errors([torch.from_numpy(g) for g in d[0]["grads"]],
+                       [g.double().cpu() for g in grads0])
+    same = len({(r["loss"], r["digest"]) for r in d}) == 1
+    log("dist_rank_dimenet", json.dumps({
+        "ranks": len(d), "loss": d[0]["loss"], "stacked_loss": float(loss0),
+        "loss_rel_err": loss_err, "loss_bitwise": d[0]["loss"] ==
+        float(loss0), "grad_max_err": max(errs), "ranks_agree": same,
+        "ms_rank0": d[0]["ms"], "stacked_ms": srec["ms"],
+        "split_ms_rank0": {k: d[0][k] for k in ("forward_ms", "backward_ms",
+                                                "psum_ms")},
+        "first_pass_ms_rank0": d[0]["first_pass_ms"],
+        "first_pass_split_ms_rank0": d[0]["first_pass_split_ms"],
+        "repeats_bitwise": [r["repeats_bitwise"] for r in d],
+        "layout_s": [r["layout_s"] for r in d],
+        "launches_forward": [r["launches_forward"] for r in d],
+        "launches_backward": [r["launches_backward"] for r in d],
+        "values": sum(r["values"] for r in d),
+        "stacked_values": srec["values"],
+        "max_memory_allocated": [r["max_memory_allocated"] for r in d]}))
+    if (loss_err > GNN_LOSS_RTOL or max(errs) > GNN_GRAD_TOL or not same
+            or min(r["launches_backward"] for r in d) <= 0
+            or not all(r["repeats_bitwise"] for r in d)):
+        raise AssertionError(f"ranks DimeNet against the stacked pass: "
+                             f"loss {loss_err}, per leaf {errs}, agree "
+                             f"{same}")
+    launches["dense"] += sum(r["launches_forward"] + r["launches_backward"]
+                             for r in d)
+    a = [m["autoint"] for m in models]
+    log("dist_rank_autoint", json.dumps({
+        "ranks": len(a), "rows_a_rank": a[0]["rows"],
+        "lookup_bitwise": [r["lookup_bitwise"] for r in a],
+        "logits_max_rel_err": max(r["logits_max_rel_err"] for r in a),
+        "logits_bitwise": [r["logits_bitwise"] for r in a],
+        "lookup_ms": [r["lookup_ms"] for r in a]}))
+    if not all(r["lookup_bitwise"] for r in a) or max(
+            r["logits_max_rel_err"] for r in a) > RANK_AUTOINT_RTOL:
+        raise AssertionError(f"ranks AutoInt: {a}")
+    digests, srec = stacked["serving"]
+    sv = [m["serving"] for m in models]
+    bad = [r for r, v in enumerate(sv) if v["digests"] != digests]
+    rec = {k: v for k, v in sv[0].items() if k != "digests"}
+    rec.update({"ranks": len(sv), "held_bitwise": len(digests),
+                "ranks_differing": bad,
+                "stacked": {k: srec[k] for k in (
+                    "wall_s", "queries_per_s", "latency_p50_ms",
+                    "latency_p99_ms", "ticks", "host_reads_per_tick")}})
+    log("graph_serving_ranks", json.dumps(rec))
+    if bad or len(digests) != SERVE_RANK_QUERIES:
+        raise AssertionError(f"ranks serving: ranks {bad} differ from the "
+                             f"stacked batcher's answers")
+    for v in sv:
+        for route in launches:
+            launches[route] += v["launches"][route]
     return launches
 
 
@@ -3542,6 +4220,20 @@ def main() -> int:
         stop_dist_ingress(ingress)
 
 
+PHASE_S = {}
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Time one phase of `run_phases`: a `phase_s` line at its end."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
+        log(f"phase_s {name}={PHASE_S[name]:.3f}")
+
+
 def run_phases(args, ingress, cache_dir) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import segment_combine as sc
@@ -3550,99 +4242,152 @@ def run_phases(args, ingress, cache_dir) -> int:
     # float32 parity is asserted below: no TF32 anywhere (the defaults, set)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    work = cache_dir / "ranks"            # the rank world's input files
+    work.mkdir()
 
     smi = nvidia_smi_line()
     log("device:", torch.cuda.get_device_name(0), "|", smi)
     log("torch", torch.__version__, "cuda", torch.version.cuda)
 
-    t0 = time.perf_counter()
-    names = ("segment_combine", "flash_attention", "embedding_bag")
-    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
-        list(pool.map(_build.load, names))
-    log(f"build_s={time.perf_counter() - t0:.3f}")
+    with phase("build"):
+        names = ("segment_combine", "flash_attention", "embedding_bag")
+        with ThreadPoolExecutor(len(names)) as pool:   # one nvcc a source
+            list(pool.map(_build.load, names))
 
-    graph, ugraph, part, upart, source, sources = build_inputs(args.scale)
-    ref = host_oracles(graph, ugraph, source)
+    with phase("inputs"):
+        graph, ugraph, part, upart, source, sources = build_inputs(
+            args.scale)
+        ref = host_oracles(graph, ugraph, source)
 
-    records = kernel_phase(part, source, args.reps)
-    torch.cuda.empty_cache()
-    adversarial_phase()
-    torch.cuda.empty_cache()
+    with phase("kernel_cases"):
+        records = kernel_phase(part, source, args.reps)
+        torch.cuda.empty_cache()
+        adversarial_phase()
+        torch.cuda.empty_cache()
 
-    # one untimed pass first, so the timed pass reads the steady state, not
-    # first-use costs (allocator growth, lazy kernel loads)
-    log("main_path warm-up pass (untimed, uncounted):")
-    main_path(graph, part, upart, source, sources, ref)
-    log("main_path timed pass:")
-    torch.cuda.reset_peak_memory_stats()
-    sc.reset_launches()
-    t0 = time.perf_counter()
-    runs, multi, single0 = main_path(graph, part, upart, source, sources,
-                                     ref)
-    launches = dict(sc.LAUNCHES)
-    log(f"main_path_s={time.perf_counter() - t0:.3f} launches={launches} "
-        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
-    for route, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the {route} route launched no kernel")
-    check_lanes(part, sources, multi, single0)
-    log("main_path", json.dumps(runs))
-    del multi, single0
-    torch.cuda.empty_cache()
+    with phase("main_path"):
+        # one untimed pass first, so the timed pass reads the steady
+        # state, not first-use costs (allocator growth, lazy kernel loads)
+        log("main_path warm-up pass (untimed, uncounted):")
+        main_path(graph, part, upart, source, sources, ref)
+        log("main_path timed pass:")
+        torch.cuda.reset_peak_memory_stats()
+        sc.reset_launches()
+        t0 = time.perf_counter()
+        runs, multi, single0 = main_path(graph, part, upart, source,
+                                         sources, ref)
+        launches = dict(sc.LAUNCHES)
+        log(f"main_path_s={time.perf_counter() - t0:.3f} "
+            f"launches={launches} "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+        for route, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"the {route} route launched no "
+                                     "kernel")
+        check_lanes(part, sources, multi, single0)
+        log("main_path", json.dumps(runs))
+        del multi, single0
+        torch.cuda.empty_cache()
     # plan autotuning, multi-stage BC and embedding_bag
-    sssp_plan, tune_launches = tuning_phase(graph, part, source, ref,
-                                            cache_dir)
-    bc_launches = bc_phase(graph, part)
-    t0 = time.perf_counter()
-    emb = embedding_phase(args.reps)
-    t1 = time.perf_counter()
-    emb["edge_cases_held"] = embedding_edge_phase()
-    t2 = time.perf_counter()
-    emb["gcn"] = [{k: r[k] for k in ("d", "ms", "device_ms", "bound_ms",
-                                     "today_ms", "library_ms")}
-                  for r in embedding_gcn_phase(part, args.reps)]
-    log(f"embedding_phase_s={t1 - t0:.3f} embedding_edge_phase_s="
-        f"{t2 - t1:.3f} embedding_gcn_phase_s={time.perf_counter() - t2:.3f}")
+    with phase("tuning"):
+        sssp_plan, tune_launches = tuning_phase(graph, part, source, ref,
+                                                cache_dir)
+    with phase("bc"):
+        bc_launches = bc_phase(graph, part)
+    with phase("embedding_bag"):
+        t0 = time.perf_counter()
+        emb = embedding_phase(args.reps)
+        t1 = time.perf_counter()
+        emb["edge_cases_held"] = embedding_edge_phase()
+        t2 = time.perf_counter()
+        emb["gcn"] = [{k: r[k] for k in ("d", "ms", "device_ms", "bound_ms",
+                                         "today_ms", "library_ms")}
+                      for r in embedding_gcn_phase(part, args.reps)]
+        log(f"embedding_phase_s={t1 - t0:.3f} embedding_edge_phase_s="
+            f"{t2 - t1:.3f} embedding_gcn_phase_s="
+            f"{time.perf_counter() - t2:.3f}")
     # GNN training: full graph, the float64 check, minibatches, molecules
-    gnn_launches, gcn_ref = gnn_phase(graph, min(args.scale, GNN_F64_SCALE))
+    with phase("gnn"):
+        gnn_launches, gcn_ref = gnn_phase(graph,
+                                          min(args.scale, GNN_F64_SCALE))
+    # the equivariant GNNs and AutoInt, at full width
+    eq_counted = {"dimenet": 0, "mace": 0}
+    eq_mol = molecule_union(EQ_GRAPHS)
+    with phase("dimenet_molecule"):
+        eq_molecule_run("dimenet", eq_mol, eq_counted)
+    with phase("mace_molecule"):
+        eq_molecule_run("mace", eq_mol, eq_counted)
+    with phase("autoint"):
+        autoint_rec, autoint_launches = autoint_phase(work)
+    with phase("dimenet_sharded"):
+        dimenet_stacked = dimenet_sharded_phase(work)
     # incremental re-convergence and graph serving on the single shard
-    _, delta, sssp_cold = incremental_phase(graph, ugraph, part, upart,
-                                            source)
-    _, stream, old_bfs = graph_serving_phase(graph, part)
+    with phase("incremental"):
+        _, delta, sssp_cold = incremental_phase(graph, ugraph, part, upart,
+                                                source)
+    with phase("graph_serving"):
+        _, stream, old_bfs = graph_serving_phase(graph, part)
     # the distributed phase: the single-shard partitions go first
     del part, upart
     torch.cuda.empty_cache()
     single_steps = {r["program"]: r["supersteps"] for r in runs}
-    inputs = dist_inputs(ingress)
-    _, _, finals = dist_phase(inputs, ref, source, single_steps)
-    dist_tuned_phase(inputs, ref, source, sssp_plan,
-                     cache_dir / "dist.json")
-    dist_incremental_phase(inputs, delta, source, sssp_cold)
-    dist_serving_phase(inputs, stream, old_bfs)
+    with phase("dist_ingress_wait"):
+        inputs = dist_inputs(ingress)
+    with phase("dist"):
+        _, _, finals = dist_phase(inputs, ref, source, single_steps)
+    with phase("dist_tuned"):
+        dist_tuned_phase(inputs, ref, source, sssp_plan,
+                         cache_dir / "dist.json")
+    with phase("dist_incremental"):
+        dist_incremental_phase(inputs, delta, source, sssp_cold)
+    with phase("dist_serving"):
+        dist_serving_phase(inputs, stream, old_bfs)
+        # the rank serving stream's reference: the stacked k = 8 batchers
+        rank_stream = rank_serving_stream(stream)
+        from repro_torch.dist.comm import StackedComm
+        serving_stacked = serve_ranks_stream(
+            "stacked", inputs["directed"][0], rank_stream,
+            StackedComm(DIST_K), "cuda")
+        log("graph_serving_stacked", json.dumps(serving_stacked[1]))
     ags = {key: inputs[key][0] for key in ("directed", "undirected")}
     # GCN through propagate_sharded: only the directed sync topology stays
     inputs.pop("undirected")
     inputs.pop("slack", None)
     inputs["directed"][1].pop("tiles")
     torch.cuda.empty_cache()
-    gcn_stacked = gnn_dist_run(graph, inputs, gcn_ref)
+    with phase("gnn_dist"):
+        gcn_stacked = gnn_dist_run(graph, inputs, gcn_ref)
     # one shard a process: the card holds only the ranks' shards
     del inputs, old_bfs, sssp_cold
     torch.cuda.empty_cache()
-    rank_launches = dist_ranks_phase(ags, graph, ref, source, finals,
-                                     gcn_stacked, gcn_ref[0])
-    log(f"held_max_abs_err={json.dumps(HELD_ERRS)}")
+    with phase("dist_ranks"):
+        rank_launches = dist_ranks_phase(
+            ags, graph, ref, source, finals, gcn_stacked, gcn_ref[0], work,
+            rank_stream, {"dimenet": dimenet_stacked,
+                          "serving": serving_stacked})
+    log(f"held_max_abs_err={json.dumps(HELD_ERRS)} "
+        f"held_mag_rel_err={json.dumps(HELD_MAG_ERRS)}")
     del graph, ugraph, ref, ags, finals, gcn_stacked, gcn_ref
     torch.cuda.empty_cache()
 
-    attn = attention_kernel_phase(args.reps)
-    attn_launches = lm_serving_phase()
+    with phase("attention"):
+        attn = attention_kernel_phase(args.reps)
+    with phase("lm_serving"):
+        attn_launches = lm_serving_phase()
+    log("phase_s", json.dumps(PHASE_S))
 
     kernels = []
     paths = {"tuning": tune_launches, "bc": bc_launches,
              "dist_ranks": rank_launches,
              **{f"gnn_{k}": {"dense": n, "tile": 0, "compact": 0}
-                for k, n in gnn_launches.items()}}
+                for k, n in gnn_launches.items()},
+             **{k: {"dense": n, "tile": 0, "compact": 0}
+                for k, n in eq_counted.items()},
+             "autoint": {"dense": autoint_launches, "tile": 0, "compact": 0},
+             "dimenet_sharded": {
+                 "dense": dimenet_stacked[2]["launches_forward"]
+                 + dimenet_stacked[2]["launches_backward"],
+                 "tile": 0, "compact": 0}}
     for name, route, case in (
             ("segment_combine_dense", "dense", "dense_D1_sum"),
             ("segment_combine_tile", "tile", "tile_D1_min"),
@@ -3656,6 +4401,7 @@ def run_phases(args, ingress, cache_dir) -> int:
             "max_abs_err": max([r["max_abs_err"] for r in records
                                 if r["route"] == route]
                                + [HELD_ERRS.get(route, 0.0)]),
+            "held_mag_rel_err": HELD_MAG_ERRS.get(route, 0.0),
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": "bytes",
             "library_ms": rec["library_ms"],

@@ -1,9 +1,10 @@
 """Architecture registry of the port: `--arch <id>` resolves here.
 
-The port knows the dense LM configs (the LM serving slice) and the GCN and
-GIN configs (the GNN slice).  The MoE configs come with the MoE slice and
-the other models with theirs; asking for one raises a `KeyError` that says
-so.  The paper's graph workloads live in `gre_paper`.
+The port knows the dense LM configs (the LM serving slice), the GCN and
+GIN configs (the GNN slice), and dimenet, mace and autoint (the
+other-models slice).  The MoE configs come with the MoE slice; asking for
+one raises a `KeyError` that says so.  The paper's graph workloads live in
+`gre_paper`.
 """
 from __future__ import annotations
 
@@ -15,14 +16,14 @@ _MODULES = {
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "gin-tu": "repro_torch.configs.gin_tu",
+    "dimenet": "repro_torch.configs.dimenet",
+    "mace": "repro_torch.configs.mace",
+    "autoint": "repro_torch.configs.autoint",
 }
 
 _NOT_YET = {
     "qwen3-moe-30b-a3b": "the MoE slice (nn/moe.py)",
     "granite-moe-1b-a400m": "the MoE slice (nn/moe.py)",
-    "dimenet": "the other-models slice (ROADMAP Queue 1 item 11)",
-    "mace": "the other-models slice (ROADMAP Queue 1 item 11)",
-    "autoint": "the other-models slice (ROADMAP Queue 1 item 11)",
 }
 
 

@@ -1,6 +1,6 @@
 """Workload configuration dataclasses of the port: the graph family, the
-dense LM family and the GNN family (the counterpart of
-`repro/configs/base.py`)."""
+dense LM family, the GNN family and the recommender family (the
+counterpart of `repro/configs/base.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -83,8 +83,9 @@ class LMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
-    """A GNN, with the fields of the JAX package's `GNNConfig`; the port
-    trains the gcn and gin families."""
+    """A GNN, with the fields of the JAX package's `GNNConfig`: the gcn
+    and gin families (`models/gnn.py`), dimenet (`models/dimenet.py`) and
+    mace (`models/mace.py`)."""
     name: str
     family: str          # gcn | gin | dimenet | mace
     n_layers: int
@@ -122,4 +123,38 @@ GNN_SHAPES: Tuple[GNNShape, ...] = (
              batch_nodes=1024, fanout=(15, 10)),
     GNNShape("ogb_products", "full_graph", 2449029, 61859140, d_feat=100),
     GNNShape("molecule", "molecule", 30, 64, batch_graphs=128),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecSysConfig:
+    name: str
+    n_sparse: int = 39
+    embed_dim: int = 16
+    n_attn_layers: int = 3
+    n_heads: int = 2
+    d_attn: int = 32
+    n_dense: int = 0
+    # per-field vocab sizes (criteo-like long tail)
+    vocab_sizes: Tuple[int, ...] = ()
+    mlp_dims: Tuple[int, ...] = (256, 128)
+    dtype: str = "float32"
+
+    def total_rows(self) -> int:
+        return sum(self.vocab_sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecSysShape:
+    name: str
+    kind: str            # train | serve | retrieval
+    batch: int
+    n_candidates: int = 0
+
+
+RECSYS_SHAPES: Tuple[RecSysShape, ...] = (
+    RecSysShape("train_batch", "train", 65536),
+    RecSysShape("serve_p99", "serve", 512),
+    RecSysShape("serve_bulk", "serve", 262144),
+    RecSysShape("retrieval_cand", "retrieval", 1, n_candidates=1_000_000),
 )

@@ -171,68 +171,88 @@ class EdgeTileSplit:
     remote_fraction: float         # real remote edges / real edges
 
 
-def split_edge_tiles(ag: AgentGraph, pad_multiple: int = 8) -> EdgeTileSplit:
+def split_edge_tiles(ag: AgentGraph, pad_multiple: int = 8,
+                     shards: Optional[range] = None) -> EdgeTileSplit:
     """Split each partition's edges into remote/local destination tiles.
 
     Host-side (numpy) ingress pass; see `EdgeTileSplit` for the layout
     contract.  Every real edge lands in exactly one tile: destinations are
     either local masters (< cap) or combiners (>= cap + s_pad) — scatter
     agents never terminate edges.
+
+    `shards` (a range of partitions, default all k) selects the rows the
+    tiles hold, `[len(shards), width]`: a process that holds one shard
+    builds only that shard's tiles.  The shared statics (`er_pad`,
+    `el_pad`, `csr_max_deg`, the bucket maxima, `remote_fraction`) are
+    still over every partition, from a count pass (the tile-local
+    out-degrees are bincounts, no sort), so each held row is bitwise the
+    row of the whole split.
     """
     k, cap, s_pad, c_pad = ag.k, ag.cap, ag.s_pad, ag.c_pad
+    shards = range(k) if shards is None else shards
     comb_base = cap + s_pad
-    sels = []
-    for i in range(k):
-        d = ag.dst[i]
-        real = ag.edge_mask[i]
-        is_comb = real & (d >= comb_base) & (d < ag.sink)
-        is_master = real & (d < cap)
-        assert np.array_equal(is_comb | is_master, real), \
-            "edge destinations must be masters or combiners"
-        sels.append((np.flatnonzero(is_comb), np.flatnonzero(is_master)))
-
-    er_pad = max(1, max(r.shape[0] for r, _ in sels))
-    el_pad = max(1, max(l.shape[0] for _, l in sels))
+    num_slots = ag.num_slots
+    real = ag.edge_mask
+    is_comb = real & (ag.dst >= comb_base) & (ag.dst < ag.sink)
+    is_master = real & (ag.dst < cap)
+    assert np.array_equal(is_comb | is_master, real), \
+        "edge destinations must be masters or combiners"
+    n_rem = is_comb.sum(axis=1)
+    n_loc = is_master.sum(axis=1)
+    er_pad = max(1, int(n_rem.max()))
+    el_pad = max(1, int(n_loc.max()))
     er_pad = -(-er_pad // pad_multiple) * pad_multiple
     el_pad = -(-el_pad // pad_multiple) * pad_multiple
-    num_slots = ag.num_slots
 
-    def tile(width: int, junk_dst: int) -> EdgeTile:
+    # count pass: the statics over every partition, from each tile's
+    # local out-degrees
+    stats = {"remote": [0, (), ()], "local": [0, (), ()]}
+    for i in range(k):
+        for name, sel in (("remote", is_comb[i]), ("local", is_master[i])):
+            deg = np.bincount(ag.src[i][sel], minlength=num_slots)
+            indptr = np.zeros(num_slots + 1, dtype=np.int64)
+            np.cumsum(deg, out=indptr[1:])
+            _, sizes, max_degs = degree_buckets(indptr, num_slots)
+            st = stats[name]
+            st[0] = max(st[0], int(deg.max()) if deg.size else 0)
+            st[1] = _merge_bucket_stats(st[1], sizes)
+            st[2] = _merge_bucket_stats(st[2], max_degs)
+
+    kh = len(shards)
+
+    def tile(width: int, junk_dst: int, name: str) -> EdgeTile:
+        max_deg, sizes, max_degs = stats[name]
         return EdgeTile(
-            src=np.full((k, width), ag.sink, dtype=np.int32),
-            dst=np.full((k, width), junk_dst, dtype=np.int32),
-            mask=np.zeros((k, width), dtype=bool),
-            props={n: np.zeros((k, width), dtype=v.dtype)
+            src=np.full((kh, width), ag.sink, dtype=np.int32),
+            dst=np.full((kh, width), junk_dst, dtype=np.int32),
+            mask=np.zeros((kh, width), dtype=bool),
+            props={n: np.zeros((kh, width), dtype=v.dtype)
                    for n, v in ag.edge_props.items()},
-            csr_indptr=np.zeros((k, num_slots + 1), dtype=np.int32),
-            csr_eidx=np.zeros((k, width), dtype=np.int32),
-            csr_max_deg=0,
-            bucket_id=np.full((k, num_slots), -1, dtype=np.int32),
+            csr_indptr=np.zeros((kh, num_slots + 1), dtype=np.int32),
+            csr_eidx=np.zeros((kh, width), dtype=np.int32),
+            csr_max_deg=max_deg,
+            bucket_id=np.full((kh, num_slots), -1, dtype=np.int32),
+            bucket_sizes=sizes, bucket_max_deg=max_degs,
         )
 
-    remote, local = tile(er_pad, c_pad), tile(el_pad, cap)
-    n_remote = n_real = 0
-    for i, (rsel, lsel) in enumerate(sels):
-        n_remote += rsel.shape[0]
-        n_real += rsel.shape[0] + lsel.shape[0]
+    remote = tile(er_pad, c_pad, "remote")
+    local = tile(el_pad, cap, "local")
+    for h, i in enumerate(shards):
+        rsel, lsel = np.flatnonzero(is_comb[i]), np.flatnonzero(is_master[i])
         for t, sel, shift in ((remote, rsel, comb_base), (local, lsel, 0)):
             n = sel.shape[0]
-            t.src[i, :n] = ag.src[i, sel]
-            t.dst[i, :n] = ag.dst[i, sel] - shift
-            t.mask[i, :n] = True
+            t.src[h, :n] = ag.src[i, sel]
+            t.dst[h, :n] = ag.dst[i, sel] - shift
+            t.mask[h, :n] = True
             for name, v in ag.edge_props.items():
-                t.props[name][i, :n] = v[i, sel]
-            t.csr_indptr[i], t.csr_eidx[i], deg = csr_layout(
-                t.src[i], t.mask[i], num_slots)
-            t.csr_max_deg = max(t.csr_max_deg, deg)
-            t.bucket_id[i], sizes, max_degs = degree_buckets(
-                t.csr_indptr[i], num_slots)
-            t.bucket_sizes = _merge_bucket_stats(t.bucket_sizes, sizes)
-            t.bucket_max_deg = _merge_bucket_stats(t.bucket_max_deg,
-                                                   max_degs)
+                t.props[name][h, :n] = v[i, sel]
+            t.csr_indptr[h], t.csr_eidx[h], _ = csr_layout(
+                t.src[h], t.mask[h], num_slots)
+            t.bucket_id[h], _, _ = degree_buckets(t.csr_indptr[h], num_slots)
 
+    n_real = int(n_rem.sum() + n_loc.sum())
     return EdgeTileSplit(remote=remote, local=local,
-                         remote_fraction=n_remote / max(n_real, 1))
+                         remote_fraction=int(n_rem.sum()) / max(n_real, 1))
 
 
 def slot_to_original(ag: AgentGraph) -> np.ndarray:

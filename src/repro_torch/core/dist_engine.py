@@ -360,15 +360,15 @@ class DistGREEngine:
         identity slot.  Receive-side master slots keep their index; padding
         is dropped (it would land on `cap`, the local identity slot).
         """
-        split = split_edge_tiles(ag)
+        # only the held shards' tiles are built (the pads are every
+        # shard's)
+        split = split_edge_tiles(ag, shards=self.comm.shards)
         kl, cap, c_pad, ns = self.k_local, ag.cap, ag.c_pad, ag.num_slots
         rows, comb_base = self.rows, cap + ag.s_pad
 
         def tile_part(t, block):
-            return _edge_part(t.src[rows], _stack_rows(t.dst[rows], block),
-                              t.mask[rows],
-                              {n: v[rows] for n, v in t.props.items()},
-                              t.csr_indptr[rows], t.csr_eidx[rows],
+            return _edge_part(t.src, _stack_rows(t.dst, block), t.mask,
+                              t.props, t.csr_indptr, t.csr_eidx,
                               t.csr_max_deg, ns, kl, cap, {}, self.device)
 
         recv = ag.comb_recv_master[rows]

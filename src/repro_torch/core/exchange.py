@@ -191,15 +191,40 @@ def refresh_scatter_agents(topo: ShardTopology, comm,
 
 
 def flush_combiners(comm, combined: torch.Tensor, send: torch.Tensor,
-                    recv: CombineRoute, monoid: Monoid) -> torch.Tensor:
+                    recv: CombineRoute, monoid: Monoid,
+                    routes=None) -> torch.Tensor:
     """Exchange 2 (combiner → master): ONE ⊕-reduced value per agent.
 
     `send` gathers the combiners' partials out of `combined`, the
     communicator delivers them, and `recv` ⊕-folds them into their
     masters: `[recv.num_segments, *payload]`, identity elsewhere.
+
+    `routes`, the `GatherRoute`s of the flat `send` (over `combined`'s
+    rows) and of `recv.order` (over the received buffer), makes the flush
+    differentiable through the combine kernel (`kernels.ops.gather_rows`):
+    no gradient then takes an `index_add_`.
     """
-    rec = comm.all_to_all(_gather(combined, send))
-    return recv.combine(_flat(rec, combined.shape[1:]), monoid)
+    payload = tuple(combined.shape[1:])
+    if routes is None:
+        rec = comm.all_to_all(_gather(combined, send))
+        return recv.combine(_flat(rec, payload), monoid)
+    send_route, recv_route = routes
+    sent = kernel_ops.gather_rows(combined, send.reshape(-1), send_route)
+    rec = comm.all_to_all(sent.reshape(tuple(send.shape) + payload))
+    landed = kernel_ops.gather_rows(_flat(rec, payload), recv.order,
+                                    recv_route)
+    return kernel_ops.segment_combine(landed, recv.dst, recv.num_segments,
+                                      monoid.name, seg_ptr=recv.seg_ptr)
+
+
+def flush_routes(topo: ShardTopology):
+    """`flush_combiners`' `routes` over a sync topology: the
+    `GatherRoute`s of its flat `comb_send` (over the stacked slots) and of
+    its `comb_recv.order` (over the received buffer), built once."""
+    return (kernel_ops.GatherRoute.build(topo.comb_send.reshape(-1),
+                                         topo.part.num_slots),
+            kernel_ops.GatherRoute.build(topo.comb_recv.order,
+                                         topo.comb_send.numel()))
 
 
 class _SyncPhase:

@@ -118,3 +118,20 @@ def erdos_renyi_edges(n: int, m: int, seed: int = 0,
     if weights:
         props["weight"] = rng.integers(1, 65536, size=m).astype(np.float32)
     return Graph(n, src, dst, props)
+
+
+def random_geometric_molecule(n_atoms: int, n_edges: int, seed: int = 0):
+    """Small 3D point cloud + kNN-ish edges, for DimeNet/MACE smoke inputs:
+    `(pos [n_atoms, 3] f32, src [n_edges] i32, dst [n_edges] i32)`, edges
+    dst-sorted."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(size=(n_atoms, 3)).astype(np.float32) * 1.5
+    d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    k = max(1, int(np.ceil(n_edges / n_atoms)))
+    nbr = np.argsort(d2, axis=1)[:, :k]
+    src = np.repeat(np.arange(n_atoms), k)
+    dst = nbr.ravel()
+    order = np.argsort(dst, kind="stable")
+    return (pos, src[order][:n_edges].astype(np.int32),
+            dst[order][:n_edges].astype(np.int32))

@@ -146,8 +146,18 @@ class GatherRoute:
     num_rows: int
 
     @staticmethod
-    def build(idx: torch.Tensor, num_rows: int) -> "GatherRoute":
-        seg, order = torch.sort(idx.to(torch.int32), stable=True)
+    def build(idx: torch.Tensor, num_rows: int,
+              mask: Optional[torch.Tensor] = None) -> "GatherRoute":
+        """The route of `idx`; with `mask`, of the positions where it is
+        set only (a route for `route_sum`, whose other rows take no part:
+        a `gather_rows` backward needs every position)."""
+        if mask is None:
+            seg, order = torch.sort(idx.to(torch.int32), stable=True)
+        else:
+            pos = torch.nonzero(mask).squeeze(1)
+            seg, o = torch.sort(idx.index_select(0, pos).to(torch.int32),
+                                stable=True)
+            order = pos.index_select(0, o)
         return GatherRoute(order, seg, sc.segment_row_pointer(seg, num_rows),
                            num_rows)
 
@@ -174,6 +184,35 @@ class _GatherRows(torch.autograd.Function):
             (idx,) = ctx.saved_tensors
             route = GatherRoute.build(idx, ctx.num_rows)
         return route.scatter_sum(grad), None, None
+
+
+class _RouteSum(torch.autograd.Function):
+    """`out[r] = Σ rows[i] over idx[i] == r` on a route built once:
+    forward the rows taken in sorted order into one dense-route combine,
+    backward each row's gradient read at its segment and written back to
+    its position (a gather and a copy to distinct rows, no atomic)."""
+
+    @staticmethod
+    def forward(ctx, rows, route):
+        ctx.route = route
+        ctx.shape = rows.shape
+        return segment_combine(rows.index_select(0, route.order), route.seg,
+                               route.num_rows, "sum", seg_ptr=route.seg_ptr)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        r = ctx.route
+        out = grad.new_zeros(ctx.shape)
+        return out.index_copy_(0, r.order, grad.index_select(0, r.seg)), None
+
+
+def route_sum(rows: torch.Tensor, route: GatherRoute) -> torch.Tensor:
+    """The ⊕ = sum of `rows [n, *payload]` into `[route.num_rows,
+    *payload]` by an index in any order (`jax.ops.segment_sum`), over its
+    `GatherRoute` built once (rows outside a masked route are dropped):
+    one combine launch forward, differentiable in `rows`."""
+    return _RouteSum.apply(rows, route)
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,

@@ -36,7 +36,9 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.engine import resolve_device
-from repro_torch.core.exchange import _master_mask
+from repro_torch.core.exchange import (_master_mask, flush_combiners,
+                                       flush_routes)
+from repro_torch.core.vertex_program import MONOIDS
 from repro_torch.kernels import ops
 from repro_torch.kernels.segment_combine import segment_row_pointer
 from repro_torch.nn.layers import dense_init, mlp_apply, mlp_init
@@ -269,14 +271,13 @@ class ShardRoutes:
                              "flush route (DistGREEngine with exchange "
                              "'agent' or 'dense')")
         n = part.num_slots
+        comb_send, comb_recv = flush_routes(topo)
         return ShardRoutes(
             edges=EdgeRoutes.build(part.src, part.dst, part.edge_mask, n),
             scat_send=ops.GatherRoute.build(topo.scat_send.reshape(-1), n),
             scat_recv=ops.GatherRoute.build(topo.scat_recv_pos,
                                             topo.scat_send.numel()),
-            comb_send=ops.GatherRoute.build(topo.comb_send.reshape(-1), n),
-            comb_recv=ops.GatherRoute.build(topo.comb_recv.order,
-                                            topo.comb_send.numel()),
+            comb_send=comb_send, comb_recv=comb_recv,
             masters=_master_mask(part))
 
 
@@ -305,13 +306,9 @@ def propagate_sharded(h_slots: torch.Tensor, topo, comm,
     part = topo.part
     combined = propagate(h, part.src, part.dst, part.edge_mask,
                          part.num_slots, edge_weight, routes=r.edges)
-    sent = ops.gather_rows(combined, topo.comb_send.reshape(-1), r.comb_send)
-    rec = comm.all_to_all(sent.reshape(tuple(topo.comb_send.shape) + payload))
-    cr = topo.comb_recv
-    flushed = ops.segment_combine(
-        ops.gather_rows(rec.reshape((-1,) + payload), cr.order,
-                        r.comb_recv),
-        cr.dst, cr.num_segments, "sum", seg_ptr=cr.seg_ptr)
+    flushed = flush_combiners(comm, combined, topo.comb_send, topo.comb_recv,
+                              MONOIDS["sum"],
+                              routes=(r.comb_send, r.comb_recv))
     mask = r.masters.reshape((-1,) + (1,) * len(payload))
     return torch.where(mask, combined, 0.0) + flushed
 
@@ -449,10 +446,17 @@ def params_from_numpy(tree, cfg: GNNConfig, device="cuda"):
     """The JAX package's `init_gnn` parameters, as numpy arrays in its
     tree (`None` for a fixed GIN eps), as the port's tree of float32 leaf
     tensors on `device` that require gradients."""
-    dev = resolve_device(device)
     if len(tree["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(tree['layers'])} layers, config "
                          f"{cfg.n_layers}")
+    return leaves_from_numpy(tree, device)
+
+
+def leaves_from_numpy(tree, device="cuda"):
+    """A tree of numpy arrays (dicts, lists, `None`) as the same tree of
+    float32 leaf tensors on `device` that require gradients: the JAX
+    package's parameters carried across."""
+    dev = resolve_device(device)
     return _map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(
         dev).requires_grad_(True), tree)
 

@@ -104,7 +104,11 @@ class GraphQueryBatcher:
     `engine` is a `GREEngine` (with a `DevicePartition` target) or a
     `DistGREEngine` (with an `AgentGraph` target); the program must be a
     multi-source variant exposing `lane_activates` (`bfs_program(D)`,
-    `sssp_program(D)`, `ppr_push_program(D)`).
+    `sssp_program(D)`, `ppr_push_program(D)`).  Over a `ProcessGroupComm`
+    each rank runs its own batcher on the shard it holds: every rank must
+    submit the same queries in the same order (and land the same deltas),
+    so that all ranks retire, evict and admit the same lanes and issue the
+    same collectives (a finished lane's fetch all-gathers it).
 
     Public protocol: `submit()` enqueues; `pump()` retires, evicts and
     admits (on the host, between ticks); `tick()` advances every resident
@@ -172,8 +176,10 @@ class GraphQueryBatcher:
                 target, steps_per_tick=self.steps_per_tick)
             self._aux = {n: torch.from_numpy(a).to(self.engine.device)
                          for n, a in self.engine._aux(target).items()}
-            # (shards, slots a shard, masters a shard)
-            self._blocks = (target.k, target.num_slots, target.cap)
+            # (held shards, slots a shard, masters a shard): a rank's state
+            # holds only its own shards' rows
+            self._blocks = (self.engine.k_local, target.num_slots,
+                            target.cap)
         else:
             self._part = target
             self._aux = target.aux
@@ -186,7 +192,10 @@ class GraphQueryBatcher:
         """Apply `lane -> src` transitions to the state IN PLACE (src None
         = reset the lane without seeding, i.e. eviction).  `src` is a
         master slot on the single shard, `(shard, local slot)` on stacked
-        shards; only the seeded lanes are indexed, never a sentinel."""
+        shards; only the seeded lanes are indexed, never a sentinel.  A
+        process resets the lanes in the rows it holds and seeds only the
+        sources whose master it holds (`DistGREEngine.init_state`'s rule);
+        every process marks the same lanes active."""
         p, st = self.program, self.state
         dev = st.vertex_data.device
         k, ns, m = self._blocks
@@ -194,6 +203,9 @@ class GraphQueryBatcher:
         lanes = torch.tensor(order, dtype=torch.int64, device=dev)
         seeded = [(d, ops[d]) for d in order if ops[d] is not None]
         if self._dist:
+            first = self.engine.rows.start
+            seeded = [(d, (i - first, s)) for d, (i, s) in seeded
+                      if 0 <= i - first < k]
             rows = [(i * m + s, i * ns + s) for _, (i, s) in seeded]
         else:
             rows = [(s, s) for _, s in seeded]
@@ -278,7 +290,11 @@ class GraphQueryBatcher:
         return la[0] if la.ndim == 2 else la
 
     def _lane_result(self, lane: int) -> np.ndarray:
-        """One lane's result in original vertex order (one device read)."""
+        """One lane's result in original vertex order (one device read).
+        Over ranks it is a collective (`original_order` all-gathers the
+        masters), so every rank fetches the same lanes in the same order:
+        `pump` decides from the global lane halt and superstep counts
+        only, never from a clock."""
         self.host_reads += 1
         vd = self.state.vertex_data
         col = (self.program.lane_view(vd, lane)

@@ -92,6 +92,32 @@ def test_split_edge_tiles_and_slot_map(graphs, k):
     assert_same(tag.slot_to_original(t), jag.slot_to_original(j))
 
 
+@pytest.mark.parametrize("k", [3, 8])
+def test_split_edge_tiles_of_held_shards(graphs, k):
+    """A process that holds one shard (or a block of them) builds only its
+    rows of the tiles, each bitwise the whole split's row, with the whole
+    split's pads, maxima and remote fraction; the engine's rank topology
+    is laid out from them."""
+    g, _ = graphs
+    t = tag.build_agent_graph(g, tstream.partition_edges(g, k, "hdrf"), k)
+    whole = tag.split_edge_tiles(t)
+    for shards in [range(i, i + 1) for i in range(k)] + [range(1, k)]:
+        held = tag.split_edge_tiles(t, shards=shards)
+        assert held.remote_fraction == whole.remote_fraction
+        for name in ("remote", "local"):
+            a, b = getattr(held, name), getattr(whole, name)
+            rows = slice(shards.start, shards.stop)
+            for f in dataclasses.fields(a):
+                x, y = getattr(a, f.name), getattr(b, f.name)
+                if isinstance(y, np.ndarray):
+                    assert_same(x, y[rows], f"{name}.{f.name}")
+                elif isinstance(y, dict):
+                    assert_same(x, {n: v[rows] for n, v in y.items()},
+                                f"{name}.{f.name}")
+                else:
+                    assert_same(x, y, f"{name}.{f.name}")
+
+
 def test_edge_part_length_mismatch_raises(graphs):
     g, _ = graphs
     with pytest.raises(ValueError, match="entries"):

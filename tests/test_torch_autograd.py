@@ -122,6 +122,32 @@ def test_row_gather_gradcheck_and_route():
     assert route.seg.tolist() == sorted(idx.tolist())
 
 
+def test_route_sum_gradcheck_and_jax():
+    """`route_sum` over an unsorted index on a masked route: gradcheck,
+    and the forward and gradient of `jax.ops.segment_sum` of the masked
+    rows (indices past the segments are dropped by the mask too)."""
+    rng = np.random.default_rng(5)
+    rows = torch.from_numpy(rng.normal(size=(30, 2, 3))).requires_grad_(True)
+    idx = torch.from_numpy(rng.integers(0, 9, 30).astype(np.int32))
+    mask = torch.from_numpy(rng.random(30) < 0.7)
+    route = ops.GatherRoute.build(idx, 8, mask=mask & (idx < 8))
+    assert torch.autograd.gradcheck(lambda r: ops.route_sum(r, route),
+                                    (rows,))
+    cot = rng.normal(size=(8, 2, 3))
+    ops.route_sum(rows, route).backward(torch.from_numpy(cot))
+    keep = mask.numpy()[:, None, None]
+
+    def f(r):
+        return jax.ops.segment_sum(jnp.where(keep, r, 0.0),
+                                   jnp.asarray(idx.numpy()), 8)
+    r64 = jnp.asarray(rows.detach().numpy(), jnp.float32)
+    np.testing.assert_allclose(ops.route_sum(rows, route).detach().numpy(),
+                               np.asarray(f(r64)), rtol=1e-6, atol=1e-6)
+    want = jax.grad(lambda r: (f(r) * cot).sum())(r64)
+    np.testing.assert_allclose(rows.grad.numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_combine_gradient_skips_dropped_lanes():
     """Lanes routed past the segment space get no gradient on either
     route."""

@@ -209,7 +209,8 @@ def test_lm_entry_points_raise_without_a_card():
 def test_gnn_entry_points_raise_without_a_card():
     """`init_gnn`, `params_from_numpy`, `GraphBatch.build` and
     `GraphBatch.to` default to CUDA and refuse it without a card;
-    `device="cpu"` runs.  The configs not ported yet name their slice."""
+    `device="cpu"` runs.  The configs not ported yet (the MoE ones) name
+    their slice; dimenet, mace and autoint resolve."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: CUDA is a valid request here")
     from repro_torch.configs import get_config
@@ -235,9 +236,86 @@ def test_gnn_entry_points_raise_without_a_card():
     assert all(torch.equal(a, b) for a, b in zip(gnn.parameters(back),
                                                  gnn.parameters(params)))
     assert batch.to("cpu").routes.dst.tolist() == [1, 2]
-    for arch in ("dimenet", "mace", "autoint"):
-        with pytest.raises(KeyError, match="item 11"):
+    for arch in ("qwen3-moe-30b-a3b", "granite-moe-1b-a400m"):
+        with pytest.raises(KeyError, match="MoE slice"):
             get_config(arch)
+    for arch, family in (("dimenet", "gnn"), ("mace", "gnn"),
+                         ("autoint", "recsys")):
+        assert get_config(arch)[0].name == arch
+        assert get_config(arch)[1] == family
+
+
+MODEL_MODULES = ("repro_torch.nn.equivariant", "repro_torch.models.dimenet",
+                 "repro_torch.models.mace", "repro_torch.models.autoint",
+                 "repro_torch.nn.embedding", "repro_torch.configs.dimenet",
+                 "repro_torch.configs.mace", "repro_torch.configs.autoint",
+                 "repro_torch.serving.graph_scheduler")
+
+
+@pytest.mark.parametrize("module", MODEL_MODULES)
+def test_model_modules_stand_alone(module):
+    """Each module of the equivariant GNNs, AutoInt and the serving
+    batcher imports on its own, with neither `jax` nor `repro` loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
+def test_model_entry_points_raise_without_a_card():
+    """`init_dimenet`, `init_mace`, `init_autoint`, each model's
+    `params_from_numpy` and `shard_molecule_graph` default to CUDA and
+    refuse it without a card; `device="cpu"` runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: CUDA is a valid request here")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.dist.comm import StackedComm
+    from repro_torch.models import autoint, dimenet, mace
+    dcfg = dataclasses.replace(get_config("dimenet")[0], n_layers=1,
+                               d_hidden=4, n_bilinear=2)
+    mcfg = dataclasses.replace(get_config("mace")[0], n_layers=1,
+                               d_hidden=4)
+    acfg = dataclasses.replace(get_config("autoint")[0],
+                               vocab_sizes=tuple([3] * 39))
+    gen = torch.Generator()
+    for name, mod, cfg in (("dimenet", dimenet, dcfg), ("mace", mace, mcfg),
+                           ("autoint", autoint, acfg)):
+        init = getattr(mod, f"init_{name}")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init(gen, cfg)
+        params = init(gen, cfg, device="cpu")
+        tree = _numpy_tree(params)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.params_from_numpy(tree, cfg)
+        back = mod.params_from_numpy(tree, cfg, device="cpu")
+        assert all(p.requires_grad for p in _leaves(back))
+    src, dst = np.array([0, 1, 2], np.int32), np.array([1, 2, 0], np.int32)
+    kj, ji, tm = dimenet.build_triplets(src, dst, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dimenet.shard_molecule_graph(
+            np.zeros((3, 3), np.float32), np.zeros(3, np.int32), src, dst,
+            np.ones(3, bool), kj, ji, tm, dcfg, StackedComm(2))
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
+    return tree.detach().numpy()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def test_world_refuses_cuda_without_a_card():
