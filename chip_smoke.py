@@ -4,9 +4,10 @@
   python3 chip_smoke.py [--scale 22] [--reps 10]
 
 1. Starts the distributed phase's host ingress in a child process (step
-   3b), prints the card's name and power limit and builds the three CUDA
-   sources from `src/repro_torch/kernels/csrc/` with `nvcc` (sm_90a), one
-   `nvcc` per source, all started together.  Every phase ends with a
+   3b), prints the card's name and power limit and builds the four CUDA
+   sources from `src/repro_torch/kernels/csrc/` (the combine,
+   flash-attention forward and backward, EmbeddingBag) with `nvcc`
+   (sm_90a), one `nvcc` per source, all started together.  Every phase ends with a
    `phase_s <name>=<seconds>` line, and the run with one `phase_s` JSON
    line of them all.
 2. Builds the Graph500 R-MAT graph (a=0.57, b=c=0.19, edge factor 16,
@@ -156,7 +157,13 @@
    fresh single-source run on the graph its query ran on, bitwise, and the
    last PPR answer (a recycled lane) a fresh PPR batcher's, bitwise; p50
    and p99 latency, queries a second, ticks, supersteps, host reads a tick
-   and the combine counts are printed.
+   and the combine counts are printed.  Then the graph engine's restart
+   contract (paper §6.3; `graph_checkpoint` line): the main path's SSSP on
+   its partition runs 3 supersteps, `graph_engine_snapshot` (masters and
+   the active bitmap) goes into a synchronous `CheckpointManager`, comes
+   back through `restore` and `graph_engine_restore` (agent slots at the
+   identity) and runs to its end: its state must equal the uninterrupted
+   run's bit for bit, in as many supersteps, and the oracle exactly.
 3f. GNN training, right after the `embedding_bag` phase of step 3a
    (`repro_torch.models.gnn`, `repro_torch.optim.AdamW`, K1 behind
    autograd): gcn-cora (2 layers, d_hidden 16, sym norm, 7 classes) and
@@ -284,6 +291,22 @@
    float32), and the bytes of q, k, v and o over 3.35 TB/s.  `library_ms`
    is one `scaled_dot_product_attention(enable_gqa=True)` call on the same
    inputs in its own layout, a yardstick the port never calls.
+4a. The attention backward (`attention_backward_case` lines): at the
+   LM training shapes (smollm-135m B=4, S=4096, Kv=3, G=3, H=64;
+   granite-moe B=2, S=4096, Kv=8, G=2, H=64; qwen3-moe B=1, S=2048, Kv=4,
+   G=8, H=128; bf16, causal) and six small cases in float32 and bf16
+   (causal and not, Sq < Sk and Sq > Sk, ragged S=1000, G = 1, 3 and 8,
+   every head dim), the forward kernel's row statistic `lse` against the
+   plain logsumexp (1e-4 of 1 + |lse|; the forward's output unchanged by
+   asking for it), then the backward kernel against
+   `flash_attention_bwd_plain` on the same (q, k, v, o, lse, dO): dQ, dK,
+   dV within 1e-4 (float32) or one bf16 ulp (bf16) of the element plus
+   1e-4 of its row's and its tensor's RMS (dS cancels to rounding noise
+   on rows whose probabilities are one-hot, query row 0 among them), two
+   launches bitwise equal.  Times are CUDA-event medians; `bound_ms` is 5
+   products of 2·H FLOP a visible pair over the type's peak against the
+   bytes of q, k, v, o, dO, lse, dQ, dK, dV; `library_ms` at the training
+   shapes is SDPA's backward through `autograd.grad`, a yardstick.
 5. LM serving phase, full-width smollm-135m (30 layers, d_model 576, 9
    heads over 3 kv heads, bf16; random weights from a CUDA generator
    seeded 0), with the attention kernel's launch count set to 0 before and
@@ -301,6 +324,29 @@
    holds decode exactly, at full width in float32 (TF32 off) three short
    requests through the batcher must give exactly the tokens of offline
    greedy generation through `lm_forward`.
+5a. MoE serving (`moe_model` lines): granite-moe-1b-a400m at full width
+   and depth (24 layers, d_model 1024, 32 experts top-8, bf16, 1.385 B
+   parameters) through the serve flow (B=4 × 2048, 32 decode steps) and
+   the batcher (as step 5), then qwen3-moe-30b-a3b at full width (d_model
+   2048, 128 experts top-8, H = 128, G = 8) cut to 4 of its 48 layers
+   (3.1 B parameters; 48 layers would need 61 GB of bf16 weights) through
+   the serve flow (B=1 × 2048, 8 decode steps).  K3 must launch once a
+   layer a prefill and K1 (the MoE combine) once a layer a prefill or
+   decode step; the logits are held as in step 5 under a capacity factor
+   that drops no hit (cap = T: a full forward and a decode step then see
+   the same sums); layer 0's `moe_ffn` at ample capacity is held against
+   `moe_ffn_reference` (the `[T, E, D]` oracle) and the expert-sharded
+   form on `StackedComm(4)` against the local call, within the bf16
+   attention limit.
+5b. LM training (`train_run` lines) through `launch.train.main`:
+   smollm-135m `--full-size` at seq 4096 (LM_SHAPES train_4k; batch cut
+   256 → 4), 6 steps (the first untimed), then the same run crashed at
+   step 4 (`--fail-at 4`, a snapshot every 4 steps) and resumed: the
+   resumed run's loss and final snapshot must equal the uninterrupted
+   run's bit for bit; granite-moe-1b-a400m `--full-size`, seq 4096, batch
+   2, 4 steps.  Each step must launch K3's forward 2·L times (every layer
+   checkpointed) and its backward L times; the first backward call of
+   each model's first step is held against the plain backward.
 6. Prints the `kernels` JSON line (the combine kernel's two routes, the
    compaction, `embedding_bag` and the attention kernel; the combine
    entries also carry their launches in step 3a's tuned runs and BC pass,
@@ -308,7 +354,9 @@
    (summed over the ranks), and the (op, width) of
    every call held on the path's own inputs; `embedding_bag` its
    backward's launches and times, its edge cases held and its GCN-shaped
-   times), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+   times; the attention backward at smollm's training shape, its launches
+   those of the training runs), the nvidia-smi line, and last
+   `{"ok": true, "device": {...}}`.
 
 Any failed check raises and the script exits non-zero; without a card it
 exits non-zero before printing any result.
@@ -321,6 +369,7 @@ import dataclasses
 import json
 import math
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2629,19 +2678,28 @@ HELD_MAG_ERRS = {"dense": 0.0, "tile": 0.0}
 HELD_WIDTHS = set()
 
 
-def hold_block(name, fn):
-    """Run `fn()`, holding each of its combine-wrapper calls on its own
-    inputs against the plain version (`hold_recorded`) as the call returns
-    (so a call's inputs are freed with its caller's): min/max bitwise, sums
-    within SUM_RTOL of the float64 sum of the terms' magnitudes
-    (`hold_combine`).  Returns the calls held by
-    `route:op:D<lanes>:<segments>`; the errors go to HELD_ERRS."""
+@contextlib.contextmanager
+def held_combines(name, active=lambda: True, uncounted=False):
+    """Hold each combine-wrapper call made inside the block, while
+    `active()`, on its own inputs against the plain version
+    (`hold_recorded`) as the call returns (so a call's inputs are freed
+    with its caller's): min/max bitwise, sums within SUM_RTOL of the
+    float64 sum of the terms' magnitudes (`hold_combine`).  Yields the
+    calls held by `route:op:D<lanes>:<segments>`; the errors go to
+    HELD_ERRS.  With `uncounted`, the holds' own launches are taken back
+    out of the launch counts."""
+    from repro_torch.kernels import segment_combine as sc
     seen = {}
 
     def hold(route, args):
+        if not active():
+            return
+        counts = dict(sc.LAUNCHES)
         with torch.no_grad():    # a held call may come from a backward
             e = hold_recorded(f"{name} call {sum(seen.values())}", route,
                               args)
+        if uncounted:
+            sc.LAUNCHES.update(counts)
         HELD_ERRS[route] = max(HELD_ERRS[route], e["max_abs_err"])
         HELD_MAG_ERRS[route] = max(HELD_MAG_ERRS[route], e["mag_rel_err"])
         m = args["msgs"]
@@ -2651,8 +2709,15 @@ def hold_block(name, fn):
         seen[key] = seen.get(key, 0) + 1
 
     with recorded_combines(hold):
-        fn()
+        yield seen
     torch.cuda.synchronize()
+
+
+def hold_block(name, fn):
+    """Run `fn()` with each of its combine-wrapper calls held
+    (`held_combines`); returns the calls held."""
+    with held_combines(name) as seen:
+        fn()
     return seen
 
 
@@ -4016,6 +4081,162 @@ def attention_kernel_phase(reps, cases=ATTN_CASES):
     return records
 
 
+# ------------------------------------------------ attention backward phase
+ATTN_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+ATTN_BWD_REPLACES = "src/repro/nn/attention.py:90"
+BWD_F32_RTOL = 1e-4          # of |ref|: f32 sums in another order
+BWD_BF16_RTOL = 2.0 ** -7    # one bf16 ulp: both round the same f32 sum
+BWD_ATOL = 1e-4              # of the row's plus the tensor's RMS
+LSE_TOL = 1e-4           # of 1 + |lse|: the forward's row statistic
+_BWD_SMALL = (  # name, B, Sq, Sk, Kv, G, H, causal: each in f32 and bf16
+    ("causal_g3_h64", 2, 256, 256, 2, 3, 64, True),
+    ("noncausal_sq_lt_sk", 2, 100, 300, 2, 3, 32, False),
+    ("causal_sq_gt_sk", 2, 300, 100, 2, 1, 32, True),
+    ("ragged_1000", 2, 1000, 1000, 1, 3, 64, True),
+    ("g8_h128", 2, 200, 200, 1, 8, 128, True),
+    ("g1_h16", 2, 130, 130, 3, 1, 16, True),
+)
+ATTN_BWD_CASES = (  # the training shapes first
+    ("smollm_train", 4, 4096, 4096, 3, 3, 64, True, torch.bfloat16),
+    ("granite_train", 2, 4096, 4096, 8, 2, 64, True, torch.bfloat16),
+    ("qwen3_train", 1, 2048, 2048, 4, 8, 128, True, torch.bfloat16),
+) + tuple(c + (dt,) for dt in (torch.float32, torch.bfloat16)
+          for c in _BWD_SMALL)
+
+
+def attention_bwd_bound(b, sq, sk, kv, g, h, causal, dtype):
+    """(bound_ms, bound_by) of the backward: 5 products of 2·H FLOP a
+    visible (query, key) pair over the input type's peak, against the
+    bytes of q, k, v, o, dO, lse in and dQ, dK, dV out, each once."""
+    if causal:
+        pairs = sum(min(i + 1, sk) for i in range(sq))
+    else:
+        pairs = sq * sk
+    flops = 10.0 * h * pairs * b * kv * g
+    size = torch.finfo(dtype).bits // 8
+    nbytes = ((4 * b * sq * kv * g * h + 4 * b * sk * kv * h) * size
+              + 4 * b * kv * g * sq)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def bwd_error_ratio(got, want) -> float:
+    """Worst |got - want| over its limit; above 1 fails.  The relative
+    part: 1e-4 of |want| in float32 (the sums run in another order), one
+    bf16 ulp in bf16 (kernel and plain both round a float32 sum of the
+    same terms).  The absolute part, 1e-4 of the row's RMS plus the whole
+    tensor's: dS = p·(dO·vᵀ − δ) cancels to rounding noise where a row's
+    probabilities are one-hot (query row 0 sees key 0 alone), and there a
+    row's exact value is 0 and the noise depends on the sum order."""
+    w = want.float()
+    rms = (w.pow(2).mean(-1, keepdim=True).sqrt()
+           + w.pow(2).mean().sqrt())
+    rtol = BWD_F32_RTOL if want.dtype == torch.float32 else BWD_BF16_RTOL
+    limit = rtol * w.abs() + BWD_ATOL * rms
+    return float(((got.float() - w).abs() / limit.clamp(min=1e-30)).max())
+
+
+def hold_attention_backward(name, q, k, v, o, lse, dout, causal):
+    """The backward kernel against the plain version on one call's
+    inputs, and two launches bitwise equal; returns its record."""
+    from repro_torch.kernels import flash_attention as fa
+    first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal)
+    second = fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, dout, causal)
+    torch.cuda.synchronize()
+    rec = {"max_abs_err": 0.0, "err_ratio": 0.0}
+    for label, a, b2, want in zip(("dq", "dk", "dv"), first, second, plain):
+        if not torch.equal(a, b2):
+            raise AssertionError(f"attention backward {name}: two launches "
+                                 f"differ in {label}")
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"attention backward {name}: non-finite "
+                                 f"{label}")
+        ratio = bwd_error_ratio(a, want)
+        if ratio > 1.0:
+            raise AssertionError(f"attention backward {name}: {label} error "
+                                 f"{ratio} x its limit")
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(
+            (a.float() - want.float()).abs().max()))
+        rec["err_ratio"] = max(rec["err_ratio"], ratio)
+    return rec
+
+
+def attention_backward_phase(reps, cases=ATTN_BWD_CASES, profile=False):
+    """The backward kernel against its plain version at every case of
+    `cases` (the forward kernel's `lse` against the plain one first);
+    returns the case records.  Times are CUDA-event medians; at the LM
+    training shapes `library_ms` is SDPA's backward through
+    `autograd.grad`, and with `profile` the profiler's device times of
+    the kernel and of that call are added (a fresh process: late in the
+    smoke run the profiler has recorded no device time)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    records = []
+    for name, b, sq, sk, kv, g, h, causal, dt in cases:
+        q, k, v = attention_inputs(b, sq, sk, kv, g, h, dt)
+        gen = torch.Generator("cuda").manual_seed(sq * 7 + h)
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+        o_serve = fa.flash_attention_cuda(q, k, v, causal)
+        _, lse_plain = fa.flash_attention_plain(q, k, v, causal,
+                                                return_lse=True)
+        torch.cuda.synchronize()
+        if not torch.equal(o, o_serve):
+            raise AssertionError(f"attention backward {name}: the forward's "
+                                 "output changes with return_lse")
+        lse_ratio = float(((lse - lse_plain).abs()
+                           / (LSE_TOL * (1 + lse_plain.abs()))).max())
+        if not lse_ratio <= 1.0:
+            raise AssertionError(f"attention backward {name}: lse error "
+                                 f"{lse_ratio} x its limit")
+        rec = {"case": name, "B": b, "Sq": sq, "Sk": sk, "Kv": kv, "G": g,
+               "H": h, "causal": causal, "dtype": str(dt).split(".")[-1],
+               "lse_err_ratio": lse_ratio}
+        rec.update(hold_attention_backward(name, q, k, v, o, lse, dout,
+                                           causal))
+
+        def kernel():
+            return fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal)
+
+        launches_before = fa.LAUNCHES_BWD
+        rec["kernel_ms"] = cuda_ms(kernel, reps)
+        rec["launches"] = fa.LAUNCHES_BWD - launches_before
+        rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(
+            b, sq, sk, kv, g, h, causal, dt)
+        rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, dout, causal), max(1, reps // 5))
+        rec["library_ms"] = None
+        if name.endswith("_train"):
+            # the yardstick: SDPA's backward in its own layout
+            lq = q.reshape(b, sq, kv * g, h).transpose(1, 2).contiguous()
+            lk = k.transpose(1, 2).contiguous()
+            lv = v.transpose(1, 2).contiguous()
+            lq, lk, lv = (t.requires_grad_(True) for t in (lq, lk, lv))
+            lo = F.scaled_dot_product_attention(lq, lk, lv,
+                                                is_causal=causal,
+                                                enable_gqa=True)
+            ldo = dout.reshape(b, sq, kv * g, h).transpose(1, 2).contiguous()
+
+            def library():
+                return torch.autograd.grad(lo, (lq, lk, lv), ldo,
+                                           retain_graph=True)
+
+            rec["library_ms"] = cuda_ms(library, reps)
+            if profile:
+                rec["device_ms"], rec["device_by_kernel"] = device_ms(
+                    kernel, reps)
+                rec["library_device_ms"], _ = device_ms(library, reps)
+            del lq, lk, lv, lo, ldo
+        log("attention_backward_case", json.dumps(rec))
+        records.append(rec)
+        del q, k, v, o, lse, dout
+    torch.cuda.empty_cache()
+    return records
+
+
 # ------------------------------------------------------ LM serving phase
 def serve_flow(params, cfg, batch, prompt_len, gen):
     """The `launch/serve.py` flow at full width; returns its record and
@@ -4098,24 +4319,27 @@ def batcher_run(params, cfg, n_requests, slots, max_len, lo, hi, max_new):
     return rec
 
 
-def check_logits(params, cfg, prompts):
+def check_logits(params, cfg, prompts, label="logit_check"):
     """Prefill's last-position logits against `lm_forward`'s on the same
     tokens, bitwise (a plumbing check: the same kernels at the same
     shapes), and one decode step's logits against `lm_forward` at that
-    position (bf16, LOGIT_RTOL of the largest reference logit)."""
+    position (bf16, LOGIT_RTOL of the largest reference logit), over the
+    vocab's columns (a padded vocab's extra columns are masked)."""
     from repro_torch.models import transformer as tfm
     out = {}
     with torch.no_grad():
         logits, cache = tfm.prefill(params, prompts, cfg,
                                     max_len=prompts.shape[1] + 1)
-        full = tfm.lm_forward(params, prompts, cfg)[:, -1]
+        full = tfm.lm_forward(params, prompts, cfg)[0][:, -1]
         out["prefill"] = (logits, full)
         tok = torch.argmax(logits, -1).to(torch.int32)
         step, _ = tfm.decode_step(params, cache, tok, cfg)
         longer = torch.cat([prompts, tok[:, None].to(prompts.dtype)], 1)
-        out["decode"] = (step, tfm.lm_forward(params, longer, cfg)[:, -1])
+        out["decode"] = (step, tfm.lm_forward(params, longer, cfg)[0][:, -1])
     rec = {}
     for name, (got, want) in out.items():
+        # the vocab's own columns: the padding ones hold the float32 minimum
+        got, want = got[..., :cfg.vocab], want[..., :cfg.vocab]
         err = float((got.float() - want.float()).abs().max())
         scale = float(want.float().abs().max())
         agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
@@ -4125,7 +4349,7 @@ def check_logits(params, cfg, prompts):
         if not (torch.isfinite(got).all() and err <= limit):
             raise AssertionError(f"{name} logits vs lm_forward: {err} > "
                                  f"{limit}")
-    log("logit_check", json.dumps(rec))
+    log(label, json.dumps(rec))
     return rec
 
 
@@ -4150,7 +4374,7 @@ def check_f32_batcher(cfg):
         toks = p.tolist()
         with torch.no_grad():
             for _ in range(6):
-                logits = tfm.lm_forward(params, torch.tensor(
+                logits, _ = tfm.lm_forward(params, torch.tensor(
                     [toks], device="cuda"), cfg32)
                 toks.append(int(torch.argmax(logits[0, -1])))
         if r.out != toks[len(p):]:
@@ -4191,6 +4415,357 @@ def lm_serving_phase():
     torch.cuda.empty_cache()
     check_f32_batcher(cfg)
     return launches
+
+
+# ------------------------------------------------------ MoE serving phase
+QWEN3_LAYERS = 4          # of 48: 4 layers' bf16 weights are 6.2 GB
+
+
+@contextlib.contextmanager
+def counted_steps(counts):
+    """Count `prefill` and `decode_step` calls into `counts` while the
+    block runs (the launchers and the batcher call them through the
+    module)."""
+    from repro_torch.models import transformer as tfm
+    originals = {name: getattr(tfm, name) for name in ("prefill",
+                                                       "decode_step")}
+
+    def wrap(name):
+        def call(*args, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return originals[name](*args, **kw)
+        return call
+
+    try:
+        for name in originals:
+            setattr(tfm, name, wrap(name))
+        yield counts
+    finally:
+        for name, fn in originals.items():
+            setattr(tfm, name, fn)
+
+
+def no_drop(cfg):
+    """`cfg` with a capacity factor that keeps every hit (cap = T): the
+    MoE output of a token then depends on no other token, so decode and a
+    full forward see the same sums."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def check_moe_launches(name, cfg, counts, k3, k1):
+    """K3 once a layer a prefill; K1 (the MoE combine) once a layer a
+    prefill or decode step."""
+    calls = counts.get("prefill", 0) + counts.get("decode_step", 0)
+    want = {"k3": cfg.n_layers * counts.get("prefill", 0),
+            "k1": cfg.n_layers * calls}
+    got = {"k3": k3, "k1": k1}
+    log(f"{name}_launches", json.dumps({"got": got, "want": want,
+                                         "calls": counts}))
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, want {want}")
+
+
+def hold_moe_layer(params, cfg, tokens, seed=0):
+    """Layer 0's `moe_ffn` at ample capacity against `moe_ffn_reference`
+    (the `[T, E, D]` oracle), and the expert-sharded form on
+    `StackedComm(4)` against the local call at the config's capacity,
+    on one batch of normed random tokens; bf16, held with
+    `attention_error_ratio`'s limit (two bf16 ulps plus 3% of the row's
+    RMS: the two paths round the expert products and, sharded, the four
+    partials to bf16 at different points)."""
+    from repro_torch.dist.comm import StackedComm
+    from repro_torch.nn.layers import rmsnorm
+    from repro_torch.nn.moe import moe_ffn, moe_ffn_reference
+    m = cfg.moe
+    layer = dict(params.layers[0].moe)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device="cuda")
+    rec = {}
+    with torch.no_grad():
+        x = rmsnorm(x.to(cfg.param_dtype), params.layers[0].ln_ffn)
+        ample, _ = moe_ffn(layer, x, m.top_k, m.n_experts,
+                           capacity_factor=float(m.n_experts))
+        ref = moe_ffn_reference(layer, x, m.top_k, m.n_experts)
+        rec["oracle_err_ratio"] = attention_error_ratio(ample, ref)
+        del ref
+        local, aux = moe_ffn(layer, x, m.top_k, m.n_experts,
+                             m.capacity_factor)
+        e_loc = m.n_experts // 4
+        shards = [{k: (w if k == "router" else w[i * e_loc:(i + 1) * e_loc])
+                   for k, w in layer.items()} for i in range(4)]
+        sharded, aux4 = moe_ffn(shards, x, m.top_k, m.n_experts,
+                                m.capacity_factor, comm=StackedComm(4))
+        rec["sharded_err_ratio"] = attention_error_ratio(sharded, local)
+        rec["aux_equal"] = bool(torch.equal(aux, aux4))
+    rec["finite"] = bool(torch.isfinite(ample).all()
+                         and torch.isfinite(sharded).all())
+    log("moe_hold", json.dumps({"tokens": tokens, **rec}))
+    if not (rec["finite"] and rec["aux_equal"]
+            and max(rec["oracle_err_ratio"], rec["sharded_err_ratio"])
+            <= 1.0):
+        raise AssertionError(f"MoE layer hold failed: {rec}")
+    return rec
+
+
+def moe_model_run(cfg, batch, prompt_len, gen, batcher=None):
+    """One MoE config through the serve flow (and the batcher), its
+    logits held, its launches counted; returns the record."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import transformer as tfm
+    params = tfm.init_lm(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in params.parameters())
+    # the warm-up, a prefill and two decode steps at the serve flow's
+    # shapes, with every K1 call held on its own inputs
+    warm = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (batch, prompt_len))).cuda()
+    held = hold_block(f"{cfg.name} serve warm-up",
+                      lambda: greedy_generate(params, cfg, warm, 3))
+    if sum(held.values()) != 3 * cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: {held} K1 calls held, want "
+                             f"{3 * cfg.n_layers}")
+    del warm
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    sc.reset_launches()
+    with counted_steps({}) as counts:
+        flow, prompts = serve_flow(params, cfg, batch, prompt_len, gen)
+        if batcher is not None:
+            batcher_run(params, cfg, **batcher)
+    torch.cuda.synchronize()
+    check_moe_launches(cfg.name, cfg, counts, fa.LAUNCHES,
+                       sc.LAUNCHES["dense"])
+    rec = {"name": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "path_s": time.perf_counter() - t0,
+           "k3_launches": fa.LAUNCHES, "k1_launches": sc.LAUNCHES["dense"],
+           "held": held}
+    rec["logits"] = check_logits(params, no_drop(cfg), prompts,
+                                 label=f"logit_check_{cfg.name}")
+    rec["hold"] = hold_moe_layer(params, cfg, batch * prompt_len)
+    log("moe_model", json.dumps(rec))
+    rec["flow"] = flow
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_serving_phase():
+    """granite-moe-1b-a400m at full width and depth through the serve
+    flow and the batcher, and qwen3-moe-30b-a3b at full width, 4 of its
+    48 layers, through the serve flow; returns (records, K3 launches, K1
+    launches) of the counted runs."""
+    from repro_torch.configs import get_config
+    granite, _ = get_config("granite-moe-1b-a400m")
+    qwen3, _ = get_config("qwen3-moe-30b-a3b")
+    qwen3 = dataclasses.replace(qwen3, n_layers=QWEN3_LAYERS)
+    recs = [moe_model_run(granite, 4, 2048, 33, batcher=dict(
+                n_requests=16, slots=8, max_len=2112, lo=128, hi=2048,
+                max_new=32)),
+            moe_model_run(qwen3, 1, 2048, 9)]
+    return (recs, sum(r["k3_launches"] for r in recs),
+            sum(r["k1_launches"] for r in recs))
+
+
+# ------------------------------------------------------ LM training phase
+TRAIN_SEQ = 4096          # LM_SHAPES train_4k
+
+
+@contextlib.contextmanager
+def recorded_backward(store):
+    """The first `flash_attention_bwd_cuda` call of the block: its inputs
+    kept in `store` (the call itself runs unchanged)."""
+    from repro_torch.kernels import flash_attention as fa
+    original = fa.flash_attention_bwd_cuda
+
+    def call(*args):
+        if not store:
+            store["args"] = [a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args]
+        return original(*args)
+
+    fa.flash_attention_bwd_cuda = call
+    try:
+        yield store
+    finally:
+        fa.flash_attention_bwd_cuda = original
+
+
+def k1_per_step(cfg) -> int:
+    """K1 launches of a training step: the embedding gradient (the
+    backward of `gather_rows`), and for an MoE layer its combine forward
+    and its dispatch gather's backward.  The checkpointed recompute stops
+    once the layer's saved tensors are back (torch's non-reentrant early
+    stop), before the combine, which saves none."""
+    return 1 + (2 * cfg.n_layers if cfg.moe is not None else 0)
+
+
+def train_run(arch, argv, hold=None):
+    """`launch.train.main` on `argv`; returns its record: each step's
+    loss and wall seconds, its K3 forward and backward launches (held at
+    2·L and L a step: every layer checkpointed) and its K1 launches (held
+    at `k1_per_step`), the peak memory and the final loss (None when the
+    run exits).  With `hold`, every K1 call of the first step is held on
+    its own inputs (`held_combines`; the first step is untimed, and the
+    holds' launches are not counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segment_combine as sc
+    from repro_torch.launch import train
+    cfg = get_config(arch)[0]
+    want = (2 * cfg.n_layers, cfg.n_layers, k1_per_step(cfg))
+    steps = []
+    last = {"fwd": 0, "bwd": 0, "k1": 0}
+
+    def on_step(step, loss, seconds):
+        got = (fa.LAUNCHES - last["fwd"], fa.LAUNCHES_BWD - last["bwd"],
+               sc.LAUNCHES["dense"] - last["k1"])
+        last.update(fwd=fa.LAUNCHES, bwd=fa.LAUNCHES_BWD,
+                    k1=sc.LAUNCHES["dense"])
+        steps.append({"step": step, "loss": loss, "s": seconds,
+                      "k3_fwd": got[0], "k3_bwd": got[1], "k1": got[2]})
+        if got != want:
+            raise AssertionError(f"{arch} step {step}: K3 forward, K3 "
+                                 f"backward, K1 launches {got}, want "
+                                 f"{want}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    sc.reset_launches()
+    code, final = 0, None
+    t0 = time.perf_counter()
+    with held_combines(hold or "", active=lambda: hold and not steps,
+                       uncounted=True) as held:
+        try:
+            final = train.main(argv, on_step=on_step)
+        except SystemExit as exc:
+            code = exc.code
+    rec = {"arch": arch, "argv": argv, "exit": code, "steps": steps,
+           "final_loss": final, "wall_s": time.perf_counter() - t0,
+           "k1_launches": sc.LAUNCHES["dense"], "held": held,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if len(steps) > 1:                      # the first step untimed
+        rec["ms_per_step"] = 1e3 * float(np.mean([st["s"]
+                                                  for st in steps[1:]]))
+    log("train_run", json.dumps(rec))
+    if not all(math.isfinite(st["loss"]) for st in steps):
+        raise AssertionError(f"{arch}: a non-finite loss {steps}")
+    if hold and sum(held.values()) != want[2]:
+        raise AssertionError(f"{arch}: {held} K1 calls held in step 0, "
+                             f"want {want[2]}")
+    return rec
+
+
+def first_difference(dir_a: Path, dir_b: Path, step: int):
+    """The first array (by name) that differs between two training
+    snapshots, with its largest difference; None when all are equal."""
+    with np.load(dir_a / f"step-{step}" / "state.npz") as a, \
+            np.load(dir_b / f"step-{step}" / "state.npz") as b:
+        for key in sorted(a.files):
+            if not np.array_equal(a[key], b[key]):
+                return key, float(np.abs(a[key] - b[key]).max())
+    return None
+
+
+def lm_training_phase(work: Path):
+    """smollm-135m and granite-moe-1b-a400m `--full-size` training through
+    `launch.train.main`, the smollm run again crashed at step 4 and
+    resumed; each uninterrupted run's first step has its K1 calls held.
+    Returns (records, K3 forward launches, K3 backward launches, K1
+    launches) of the uninterrupted runs."""
+    recs = {}
+    base = ["--arch", "smollm-135m", "--full-size", "--seq", str(TRAIN_SEQ),
+            "--batch", "4", "--steps", "6", "--seed", "0"]
+    full_dir, crash_dir = work / "train_full", work / "train_crash"
+    held = {}
+    with recorded_backward(held):
+        recs["smollm"] = train_run("smollm-135m", base + [
+            "--ckpt", str(full_dir), "--ckpt-every", "100"],
+            hold="smollm train step 0")
+    fwd = sum(st["k3_fwd"] for st in recs["smollm"]["steps"])
+    bwd = sum(st["k3_bwd"] for st in recs["smollm"]["steps"])
+    recs["smollm"]["backward_hold"] = hold_attention_backward(
+        "smollm_training_layer", *held["args"])
+    del held
+    resume = base + ["--ckpt", str(crash_dir), "--ckpt-every", "4"]
+    crash = train_run("smollm-135m", resume + ["--fail-at", "4"])
+    if crash["exit"] != 42 or len(crash["steps"]) != 4:
+        raise AssertionError(f"the crash run: {crash}")
+    resumed = train_run("smollm-135m", resume)
+    if [st["step"] for st in resumed["steps"]] != [4, 5]:
+        raise AssertionError(f"the resumed run took {resumed['steps']}")
+    diff = first_difference(full_dir, crash_dir, 6)
+    rec = {"full_final": recs["smollm"]["final_loss"],
+           "resumed_final": resumed["final_loss"],
+           "bitwise": resumed["final_loss"] == recs["smollm"]["final_loss"]
+           and diff is None, "first_difference": diff}
+    log("train_resume", json.dumps(rec))
+    if not rec["bitwise"]:
+        raise AssertionError(f"the resumed run differs: {rec}")
+    recs["resume"] = rec
+    shutil.rmtree(full_dir)
+    shutil.rmtree(crash_dir)
+    held = {}
+    with recorded_backward(held):
+        recs["granite"] = train_run("granite-moe-1b-a400m", [
+            "--arch", "granite-moe-1b-a400m", "--full-size", "--seq",
+            str(TRAIN_SEQ), "--batch", "2", "--steps", "4", "--seed", "0"],
+            hold="granite train step 0")
+    fwd += sum(st["k3_fwd"] for st in recs["granite"]["steps"])
+    bwd += sum(st["k3_bwd"] for st in recs["granite"]["steps"])
+    recs["granite"]["backward_hold"] = hold_attention_backward(
+        "granite_training_layer", *held["args"])
+    del held
+    torch.cuda.empty_cache()
+    k1 = recs["smollm"]["k1_launches"] + recs["granite"]["k1_launches"]
+    return recs, fwd, bwd, k1
+
+
+# ------------------------------------------------ graph checkpoint phase
+def graph_checkpoint_phase(part, source, ref, work: Path):
+    """The main path's SSSP (frontier "auto") on its partition: 3
+    supersteps, `graph_engine_snapshot` into a synchronous
+    `CheckpointManager`, a restore onto fresh agent slots, then the run to
+    its end; its state must equal the uninterrupted run's bit for bit and
+    the oracle exactly."""
+    from repro_torch.checkpoint.manager import (CheckpointManager,
+                                                graph_engine_restore,
+                                                graph_engine_snapshot)
+    from repro_torch.core import algorithms
+    from repro_torch.core.engine import GREEngine
+    prog = algorithms.sssp_program()
+    eng = GREEngine(prog, frontier="auto")
+    full, full_ms = timed(lambda: eng.run(
+        part, eng.init_state(part, source=source), 10_000))
+    early = eng.run(part, eng.init_state(part, source=source), 3)
+    mgr = CheckpointManager(work / "graph_ckpt", async_write=False)
+    t0 = time.perf_counter()
+    snap = graph_engine_snapshot(early, part.num_masters)
+    mgr.save(early.step, snap)
+    like = {k: (torch.empty_like(v) if isinstance(v, torch.Tensor) else 0)
+            for k, v in snap.items()}
+    restored, step = mgr.restore(like)
+    state = graph_engine_restore(restored, part.num_slots,
+                                 prog.monoid.identity)
+    ckpt_s = time.perf_counter() - t0
+    resumed, resumed_ms = timed(lambda: eng.run(part, state, 10_000))
+    same = {f: bool(torch.equal(getattr(resumed, f), getattr(full, f)))
+            for f in ("vertex_data", "scatter_data", "active_scatter")}
+    rec = {"snapshot_step": step, "supersteps": full.step,
+           "resumed_supersteps": resumed.step, "bitwise": same,
+           "full_ms": full_ms, "resumed_ms": resumed_ms,
+           "save_restore_s": ckpt_s,
+           "snapshot_bytes": sum(v.numel() * v.element_size()
+                                 for v in snap.values()
+                                 if isinstance(v, torch.Tensor))}
+    log("graph_checkpoint", json.dumps(rec))
+    if step != 3 or resumed.step != full.step or not all(same.values()):
+        raise AssertionError(f"graph checkpoint: {rec}")
+    assert_exact("sssp_resumed", resumed.vertex_data, ref["sssp"])
+    shutil.rmtree(work / "graph_ckpt")
+    return rec
 
 
 def main() -> int:
@@ -4250,7 +4825,8 @@ def run_phases(args, ingress, cache_dir) -> int:
     log("torch", torch.__version__, "cuda", torch.version.cuda)
 
     with phase("build"):
-        names = ("segment_combine", "flash_attention", "embedding_bag")
+        names = ("segment_combine", "flash_attention", "embedding_bag",
+                 "flash_attention_bwd")
         with ThreadPoolExecutor(len(names)) as pool:   # one nvcc a source
             list(pool.map(_build.load, names))
 
@@ -4327,6 +4903,8 @@ def run_phases(args, ingress, cache_dir) -> int:
                                                 source)
     with phase("graph_serving"):
         _, stream, old_bfs = graph_serving_phase(graph, part)
+    with phase("graph_checkpoint"):
+        graph_checkpoint_phase(part, source, ref, cache_dir)
     # the distributed phase: the single-shard partitions go first
     del part, upart
     torch.cuda.empty_cache()
@@ -4372,8 +4950,14 @@ def run_phases(args, ingress, cache_dir) -> int:
 
     with phase("attention"):
         attn = attention_kernel_phase(args.reps)
+    with phase("attention_backward"):
+        attn_bwd = attention_backward_phase(args.reps)
     with phase("lm_serving"):
         attn_launches = lm_serving_phase()
+    with phase("moe_serving"):
+        _, moe_k3, moe_k1 = moe_serving_phase()
+    with phase("lm_training"):
+        _, train_fwd, train_bwd, train_k1 = lm_training_phase(cache_dir)
     log("phase_s", json.dumps(PHASE_S))
 
     kernels = []
@@ -4384,6 +4968,8 @@ def run_phases(args, ingress, cache_dir) -> int:
              **{k: {"dense": n, "tile": 0, "compact": 0}
                 for k, n in eq_counted.items()},
              "autoint": {"dense": autoint_launches, "tile": 0, "compact": 0},
+             "moe_serving": {"dense": moe_k1, "tile": 0, "compact": 0},
+             "lm_training": {"dense": train_k1, "tile": 0, "compact": 0},
              "dimenet_sharded": {
                  "dense": dimenet_stacked[2]["launches_forward"]
                  + dimenet_stacked[2]["launches_backward"],
@@ -4413,10 +4999,21 @@ def run_phases(args, ingress, cache_dir) -> int:
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES, "launches": attn_launches,
+        "path_launches": {"lm_serving": attn_launches,
+                          "moe_serving": moe_k3, "lm_training": train_fwd},
         "max_abs_err": max(r["max_abs_err"] for r in attn),
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"]})
+    rec = attn_bwd[0]                  # smollm-135m's training shape
+    kernels.append({
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": ATTN_BWD_SOURCE, "replaces": ATTN_BWD_REPLACES,
+        "launches": train_bwd,
+        "max_abs_err": max(r["max_abs_err"] for r in attn_bwd),
+        "ms": rec["kernel_ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

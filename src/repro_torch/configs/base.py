@@ -1,6 +1,6 @@
 """Workload configuration dataclasses of the port: the graph family, the
-dense LM family, the GNN family and the recommender family (the
-counterpart of `repro/configs/base.py`)."""
+LM family (dense and MoE) with its step shapes, the GNN family and the
+recommender family (the counterpart of `repro/configs/base.py`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,9 +32,10 @@ class MoESpec:
 class LMConfig:
     """A decoder-only LM, with the fields of the JAX package's `LMConfig`.
 
-    `q_chunk`/`kv_chunk`, `remat*` and `seq_shard_activations` are kept so
-    that a config means the same in both packages; the port's attention runs
-    at the CUDA kernel's own tile sizes and has no remat or sharding yet.
+    `q_chunk`/`kv_chunk`, `remat_block` and `seq_shard_activations` are
+    kept so that a config means the same in both packages; the port's
+    attention runs at the CUDA kernel's own tile sizes, `remat` checkpoints
+    every layer (a `remat_block` of 1), and nothing is sharded over a mesh.
     """
     name: str
     n_layers: int
@@ -79,6 +80,32 @@ class LMConfig:
             ff = d * f * (3 if self.gated else 2)
         per_layer = attn + ff + 2 * d
         return self.n_layers * per_layer + 2 * v * d + d
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: the top-k experts' only."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        e = self.moe
+        dense_ff = e.top_k * e.d_ff_expert * d * (3 if self.gated else 2)
+        full_ff = e.n_experts * e.d_ff_expert * d * (3 if self.gated else 2)
+        return self.param_count() - self.n_layers * (full_ff - dense_ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMShape:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES: Tuple[LMShape, ...] = (
+    LMShape("train_4k", "train", 4096, 256),
+    LMShape("prefill_32k", "prefill", 32768, 32),
+    LMShape("decode_32k", "decode", 32768, 128),
+    LMShape("long_500k", "decode", 524288, 1),
+)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,6 +25,12 @@
 // tile and the finite -1e30 mask needs no -inf case.  Sums run in a fixed
 // order, so two launches give the same bits.
 //
+// Given a float32 `lse` [B, Kv, G, Sq] (null when serving, which then
+// writes nothing extra), both kernels store each query row's statistic
+// lse = m + log l of the scaled scores there, after the loop: what the
+// backward (`csrc/flash_attention_bwd.cu`) recomputes p from, in place of
+// the JAX backward's saved (m, l).
+//
 // Bound on the card: operations.  4·Sq·Sk·H FLOP per head (halved under
 // the causal mask) against 989 TFLOP/s bf16 dense (67 TFLOP/s float32);
 // the bytes (q, k, v and o once each) take less time at 3.35 TB/s for
@@ -106,7 +112,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_attention_f32_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
-                               float* __restrict__ o, int sq, int sk,
+                               float* __restrict__ o,
+                               float* __restrict__ lse, int sq, int sk,
                                int kv_heads, int group, float scale,
                                int causal) {
   constexpr int kDimsPerLane = (H + 31) / 32;
@@ -274,6 +281,10 @@ __global__ void __launch_bounds__(kThreads)
       const int col = lane + 32 * d;
       if (col < H) oh[row * q_stride + col] = acc[r][d] / denom;
     }
+    // m and l are the same in every lane (butterfly reductions)
+    if (lse != nullptr && lane == 0) {
+      lse[((long long)b * heads + hq) * sq + row] = m[r] + logf(denom);
+    }
   }
 }
 
@@ -284,6 +295,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kStages = 2;              // depth of the K/V ring
 constexpr int kMaxShare = 3;            // query heads a CTA serves at most
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // kv rows a tile: 128 while O leaves the registers for a 64 x 128 S
 template <int H>
@@ -662,9 +674,11 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
     flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                       const __grid_constant__ CUtensorMap tm_k,
                                       const __grid_constant__ CUtensorMap tm_v,
-                                      bf16* __restrict__ o, int sq, int sk,
-                                      int kv_heads, int group, int shares,
-                                      float scale_log2, int causal) {
+                                      bf16* __restrict__ o,
+                                      float* __restrict__ lse, int sq,
+                                      int sk, int kv_heads, int group,
+                                      int shares, float scale_log2,
+                                      int causal) {
   using L = Smem<H, NC>;
   constexpr int kN = L::kN;
   constexpr int kRow = box_row_bytes<H>();
@@ -813,14 +827,20 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) = __floats2bfloat162_rn(
           acc[4 * j + 2 * h] / denom, acc[4 * j + 2 * h + 1] / denom);
     }
+    // m holds raw scores and l sums exp2 of scaled ones; the quad's four
+    // threads hold the same m and l
+    if (lse != nullptr && c == 0) {
+      lse[(((long long)b * kv_heads + kvh) * group + head) * sq + row] =
+          m[h] * scale_log2 * kLn2 + logf(denom);
+    }
   }
 }
 
 // ------------------------------------------------------------------ launch
 template <int H>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
-               int batch, int sq, int sk, int kv_heads, int group,
-               float scale, int causal, cudaStream_t stream) {
+               float* lse, int batch, int sq, int sk, int kv_heads,
+               int group, float scale, int causal, cudaStream_t stream) {
   const dim3 grid((unsigned)((sq + kBlockQ - 1) / kBlockQ),
                   (unsigned)(batch * kv_heads * group));
   const int smem = f32_smem_bytes<H>();
@@ -829,7 +849,7 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   flash_attention_f32_kernel<H><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, sq, sk, kv_heads, group, scale, causal);
+      q, k, v, o, lse, sq, sk, kv_heads, group, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -891,9 +911,10 @@ bool encode(CUtensorMap* map, const void* ptr, int rank,
 
 template <int H, int NC>
 int launch_bf16_share(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
-                      const CUtensorMap& tm_v, bf16* o, int batch, int sq,
-                      int sk, int kv_heads, int group, int shares,
-                      float scale_log2, int causal, cudaStream_t stream) {
+                      const CUtensorMap& tm_v, bf16* o, float* lse,
+                      int batch, int sq, int sk, int kv_heads, int group,
+                      int shares, float scale_log2, int causal,
+                      cudaStream_t stream) {
   using L = Smem<H, NC>;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attention_bf16_wgmma_kernel<H, NC>,
@@ -903,15 +924,15 @@ int launch_bf16_share(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                   (unsigned)(batch * kv_heads * shares));
   flash_attention_bf16_wgmma_kernel<H, NC>
       <<<grid, NC * 128 + 32, L::kAlloc, stream>>>(
-          tm_q, tm_k, tm_v, o, sq, sk, kv_heads, group, shares, scale_log2,
-          causal);
+          tm_q, tm_k, tm_v, o, lse, sq, sk, kv_heads, group, shares,
+          scale_log2, causal);
   return (int)cudaGetLastError();
 }
 
 template <int H>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int batch, int sq, int sk, int kv_heads, int group,
-                float scale, int causal, cudaStream_t stream) {
+                float* lse, int batch, int sq, int sk, int kv_heads,
+                int group, float scale, int causal, cudaStream_t stream) {
   constexpr cuuint32_t kBoxCols = box_row_bytes<H>() / 2;
   // q [B, Sq, Kv, G, H] in boxes of one head's 64 query rows; k, v
   // [B, Sk, Kv, H] in boxes of one kv head's kv tile
@@ -934,44 +955,47 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   bf16* out = static_cast<bf16*>(o);
   switch (per_share) {
     case 1:
-      return launch_bf16_share<H, 1>(tm_q, tm_k, tm_v, out, batch, sq, sk,
-                                     kv_heads, group, shares, scale_log2,
+      return launch_bf16_share<H, 1>(tm_q, tm_k, tm_v, out, lse, batch, sq,
+                                     sk, kv_heads, group, shares, scale_log2,
                                      causal, stream);
     case 2:
-      return launch_bf16_share<H, 2>(tm_q, tm_k, tm_v, out, batch, sq, sk,
-                                     kv_heads, group, shares, scale_log2,
+      return launch_bf16_share<H, 2>(tm_q, tm_k, tm_v, out, lse, batch, sq,
+                                     sk, kv_heads, group, shares, scale_log2,
                                      causal, stream);
     default:
-      return launch_bf16_share<H, 3>(tm_q, tm_k, tm_v, out, batch, sq, sk,
-                                     kv_heads, group, shares, scale_log2,
+      return launch_bf16_share<H, 3>(tm_q, tm_k, tm_v, out, lse, batch, sq,
+                                     sk, kv_heads, group, shares, scale_log2,
                                      causal, stream);
   }
 }
 
 template <int H>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int sq, int sk, int kv_heads, int group, float scale, int causal,
-           int dtype, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int batch, int sq, int sk, int kv_heads, int group,
+           float scale, int causal, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
     return launch_f32<H>(static_cast<const float*>(q),
                          static_cast<const float*>(k),
                          static_cast<const float*>(v), static_cast<float*>(o),
-                         batch, sq, sk, kv_heads, group, scale, causal,
+                         lse, batch, sq, sk, kv_heads, group, scale, causal,
                          stream);
   }
-  return launch_bf16<H>(q, k, v, o, batch, sq, sk, kv_heads, group, scale,
-                        causal, stream);
+  return launch_bf16<H>(q, k, v, o, lse, batch, sq, sk, kv_heads, group,
+                        scale, causal, stream);
 }
 
 }  // namespace
 
 // Launches on `stream`; returns the cudaError_t of cudaGetLastError() as an
 // int (0 = launched).  `dtype` is 0 = float32, 1 = bfloat16; `head_dim` is
-// one of 16, 32, 64, 128.  The caller allocates `o` (q's shape and dtype),
-// and checks shapes, types, devices, contiguity and 16-byte alignment.
+// one of 16, 32, 64, 128.  The caller allocates `o` (q's shape and dtype)
+// and, when it wants the row statistic, `lse` (float32 [B, Kv, G, Sq];
+// null writes none), and checks shapes, types, devices, contiguity and
+// 16-byte alignment.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int batch,
-                                      int sq, int sk, int kv_heads, int group,
+                                      const void* v, void* o, float* lse,
+                                      int batch, int sq, int sk,
+                                      int kv_heads, int group,
                                       int head_dim, int dtype, int causal,
                                       float scale, void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || kv_heads <= 0 || group <= 0 ||
@@ -981,17 +1005,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
-      return launch<16>(q, k, v, o, batch, sq, sk, kv_heads, group, scale,
-                        causal, dtype, s);
+      return launch<16>(q, k, v, o, lse, batch, sq, sk, kv_heads, group,
+                        scale, causal, dtype, s);
     case 32:
-      return launch<32>(q, k, v, o, batch, sq, sk, kv_heads, group, scale,
-                        causal, dtype, s);
+      return launch<32>(q, k, v, o, lse, batch, sq, sk, kv_heads, group,
+                        scale, causal, dtype, s);
     case 64:
-      return launch<64>(q, k, v, o, batch, sq, sk, kv_heads, group, scale,
-                        causal, dtype, s);
+      return launch<64>(q, k, v, o, lse, batch, sq, sk, kv_heads, group,
+                        scale, causal, dtype, s);
     case 128:
-      return launch<128>(q, k, v, o, batch, sq, sk, kv_heads, group, scale,
-                         causal, dtype, s);
+      return launch<128>(q, k, v, o, lse, batch, sq, sk, kv_heads, group,
+                        scale, causal, dtype, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -26,6 +26,12 @@ kernels on the card and never takes a float atomic:
 `embedding_bag` is an autograd Function of its own over the
 `kernels/embedding_bag.py` kernels: a fused gather-weight-bag-sum
 forward and a sorted-run backward, not the combine.
+
+`flash_attention` is an autograd Function over K3 when a gradient is
+wanted: its forward asks the kernel for the row statistic `lse` and its
+backward is the backward kernel (`flash_attention_bwd_cuda`), the
+counterpart of `flash_attention_jax`'s `custom_vjp`.  Without a gradient
+it is the forward kernel alone, with no statistic written.
 """
 from __future__ import annotations
 
@@ -278,12 +284,50 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     return out.to(dtype)
 
 
+def _attention(q, k, v, causal, return_lse):
+    """The forward on q's device: the kernel on a CUDA tensor, the plain
+    version on a CPU one."""
+    if not q.is_cuda:
+        return fa.flash_attention_plain(q, k, v, causal, return_lse)
+    return fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal, return_lse)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 forward with its row statistic, and the backward kernel (the
+    plain versions on a CPU tensor)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.is_cuda:                   # the kernels' layout, saved once
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = _attention(q, k, v, causal, True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        q, k, v, o, lse = ctx.saved_tensors
+        if grad.is_cuda:
+            dq, dk, dv = fa.flash_attention_bwd_cuda(
+                q, k, v, o, lse, grad.contiguous(), ctx.causal)
+        else:
+            dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, o, lse, grad,
+                                                      ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """GQA attention forward: q `[B, Sq, Kv, G, H]`, k/v `[B, Sk, Kv, H]`
-    -> `[B, Sq, Kv, G, H]`.  Query head `(kv, g)` attends to kv head `kv`;
-    the kernel reads it in place, with no broadcast copy of k/v."""
-    if not q.is_cuda:
-        return fa.flash_attention_plain(q, k, v, causal)
-    return fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal)
+    """GQA attention: q `[B, Sq, Kv, G, H]`, k/v `[B, Sk, Kv, H]` ->
+    `[B, Sq, Kv, G, H]`.  Query head `(kv, g)` attends to kv head `kv`;
+    the kernel reads it in place, with no broadcast copy of k/v.
+    Differentiable in q, k and v: when autograd records and one of them
+    needs a gradient, the forward keeps its row statistic for the
+    backward kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _attention(q, k, v, causal, False)

@@ -1,5 +1,6 @@
-"""Serving launcher: batched prefill + greedy decode on a reduced config;
-the counterpart of `repro/launch/serve.py`.
+"""Serving launcher: batched prefill + greedy decode on a reduced config
+(`launch.train.reduced_lm_config`), dense or MoE; the counterpart of
+`repro/launch/serve.py`.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --batch 4 --prompt-len 64 --gen 32 [--device cpu]
@@ -10,7 +11,6 @@ itself, for callers that bring their own config and weights.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -18,22 +18,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.engine import resolve_device
+from repro_torch.launch.train import reduced_lm_config
 from repro_torch.models import transformer as tfm
-
-
-def reduced_lm_config(cfg, layers=4, d_model=128, n_heads=4, n_kv=2,
-                      d_head=32, d_ff=256, vocab=1024):
-    """Shrink a config to a CPU-sized one of the same family, as
-    `repro/launch/train.py::reduced_lm_config` does (its copy lives here
-    until the training launcher is ported)."""
-    moe = cfg.moe
-    if moe is not None:
-        moe = dataclasses.replace(moe, n_experts=min(moe.n_experts, 8),
-                                  d_ff_expert=d_ff)
-    return dataclasses.replace(
-        cfg, n_layers=layers, d_model=d_model, n_heads=n_heads, n_kv=n_kv,
-        d_head=d_head, d_ff=d_ff, vocab=vocab, moe=moe, dtype="float32",
-        q_chunk=64, kv_chunk=64, remat_block=1)
 
 
 def _sync(device: torch.device) -> None:

@@ -1,17 +1,27 @@
-"""Decoder-only dense GQA LM: forward, prefill and decode steps; the
-counterpart of `repro/models/transformer.py` for the dense configs.
+"""Decoder-only GQA LM, dense or MoE: forward, loss, prefill and decode
+steps; the counterpart of `repro/models/transformer.py`.
 
 Parameters live in an `LM` module: one `Layer` per decoder layer in a
 `ModuleList`, in place of the JAX package's stacked `[L, ...]` layers and
 their `lax.scan`.  Tensor names and layouts are the JAX package's (`wq`
-`[d_model, n_heads·d_head]` applied as `x @ wq`, a KV cache `[L, B,
-max_len, Kv, H]`), so `params_from_numpy` carries JAX weights over as they
-are.  MoE configs, remat, `grad_cast`, the aux loss and the distribution
-context come with later slices.
+`[d_model, n_heads·d_head]` applied as `x @ wq`, an MoE layer's `moe`
+dict of `router`, `w_in`, `w_gate`, `w_out`, a KV cache `[L, B, max_len,
+Kv, H]`), so `params_from_numpy` carries JAX weights over as they are.
+The parameters are trainable; `prefill` and `decode_step` run without
+autograd and update the KV cache in place.
+
+Training (`lm_loss`): the embedding lookup is `ops.gather_rows`, whose
+backward is the combine kernel's ⊕ = sum (the JAX package's `segment_sum`
+backward of `embed_lookup`); `grad_cast` keeps the layer stack's backward
+in the parameter dtype; with `cfg.remat` each layer is checkpointed
+(`torch.utils.checkpoint`, non-reentrant), the counterpart of
+`_scan_layers` at a `remat_block` of 1, so a step runs each layer's
+attention forward twice and its backward once.  The distribution context
+(`DistCtx`, activation and embedding sharding constraints, the expert
+weights' FSDP gather) needs a device mesh and is not ported.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; asked for
-CUDA with no card present they raise.  `prefill` and `decode_step` run
-without autograd and update the KV cache in place.
+CUDA with no card present they raise.
 """
 from __future__ import annotations
 
@@ -19,36 +29,35 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.engine import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.nn.attention import apply_rope, decode_attention, gqa_attention
 from repro_torch.nn.ffn import ffn_apply, ffn_init
 from repro_torch.nn.layers import dense_init, rmsnorm, rmsnorm_init
+from repro_torch.nn.moe import moe_ffn, moe_init
 
 _LAYER_TENSORS = ("ln_attn", "wq", "wk", "wv", "wo", "ln_ffn")
 
 
-def _refuse_moe(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers come with the MoE "
-                                  "slice of the port")
-
-
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class Layer(nn.Module):
-    """One decoder layer: RMSNorm, GQA attention, RMSNorm, FFN."""
+    """One decoder layer: RMSNorm, GQA attention, RMSNorm, then a dense
+    FFN (`ffn`) or a mixture of experts (`moe`)."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor]):
         super().__init__()
         for name in _LAYER_TENSORS:
             setattr(self, name, _param(tensors[name]))
-        self.ffn = nn.ParameterDict({k: _param(v) for k, v in
-                                     tensors["ffn"].items()})
+        block = "moe" if "moe" in tensors else "ffn"
+        setattr(self, block, nn.ParameterDict(
+            {k: _param(v) for k, v in tensors[block].items()}))
 
 
 class LM(nn.Module):
@@ -65,16 +74,20 @@ class LM(nn.Module):
 
 # --------------------------------------------------------------------- init
 def init_layer(cfg: LMConfig, generator: torch.Generator) -> Layer:
-    _refuse_moe(cfg)
     dt, dev = cfg.param_dtype, generator.device
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
-    return Layer({"ln_attn": rmsnorm_init(d, dt, dev),
-                  "wq": dense_init(generator, d, nh * hd, dt),
-                  "wk": dense_init(generator, d, nkv * hd, dt),
-                  "wv": dense_init(generator, d, nkv * hd, dt),
-                  "wo": dense_init(generator, nh * hd, d, dt),
-                  "ln_ffn": rmsnorm_init(d, dt, dev),
-                  "ffn": ffn_init(generator, d, cfg.d_ff, cfg.gated, dt)})
+    tensors = {"ln_attn": rmsnorm_init(d, dt, dev),
+               "wq": dense_init(generator, d, nh * hd, dt),
+               "wk": dense_init(generator, d, nkv * hd, dt),
+               "wv": dense_init(generator, d, nkv * hd, dt),
+               "wo": dense_init(generator, nh * hd, d, dt),
+               "ln_ffn": rmsnorm_init(d, dt, dev)}
+    if cfg.moe:
+        tensors["moe"] = moe_init(generator, d, cfg.moe.d_ff_expert,
+                                  cfg.moe.n_experts, cfg.gated, dt)
+    else:
+        tensors["ffn"] = ffn_init(generator, d, cfg.d_ff, cfg.gated, dt)
+    return Layer(tensors)
 
 
 def init_lm(cfg: LMConfig, generator: torch.Generator,
@@ -96,22 +109,26 @@ def init_lm(cfg: LMConfig, generator: torch.Generator,
 
 def params_from_numpy(tree, cfg: LMConfig, device="cuda") -> LM:
     """The JAX package's `init_lm` parameters, as numpy arrays (layers
-    stacked `[L, ...]`; `head` absent when the embeddings are tied), as the
-    port's `LM` in `cfg.param_dtype` on `device`."""
-    _refuse_moe(cfg)
+    stacked `[L, ...]`, an MoE layer's experts `[L, E, ...]`; `head` absent
+    when the embeddings are tied), as the port's `LM` in `cfg.param_dtype`
+    on `device` (an MoE router stays float32, as in JAX)."""
     dev = resolve_device(device)
 
-    def t(a):
+    def t(a, dtype=cfg.param_dtype):
         # a float32 copy: numpy has no bfloat16 that torch can wrap, and
         # JAX hands out read-only arrays
-        return torch.from_numpy(np.array(a, np.float32)).to(
-            dev, cfg.param_dtype)
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
 
     stacked = tree["layers"]
+    block = "moe" if cfg.moe else "ffn"
+    if block not in stacked:
+        raise ValueError(f"{cfg.name}: the layers hold no {block!r} tensors")
     layers = []
     for i in range(cfg.n_layers):
         tensors = {name: t(stacked[name][i]) for name in _LAYER_TENSORS}
-        tensors["ffn"] = {k: t(v[i]) for k, v in stacked["ffn"].items()}
+        tensors[block] = {k: t(v[i], torch.float32 if k == "router"
+                               else cfg.param_dtype)
+                          for k, v in stacked[block].items()}
         layers.append(Layer(tensors))
     head = tree.get("head")
     if (head is None) != cfg.tie_embeddings:
@@ -144,7 +161,41 @@ def _attention_block(p: Layer, x, cfg: LMConfig, positions):
 
 
 def _ffn_block(p: Layer, x, cfg: LMConfig):
-    return x + ffn_apply(p.ffn, rmsnorm(x, p.ln_ffn), cfg.activation)
+    """(x + the FFN or MoE of the normed x, the MoE aux loss or 0.0)."""
+    h = rmsnorm(x, p.ln_ffn)
+    if cfg.moe is None:
+        return x + ffn_apply(p.ffn, h, cfg.activation), 0.0
+    b, s, d = x.shape
+    m = cfg.moe
+    out, aux = moe_ffn(p.moe, h.reshape(b * s, d), m.top_k, m.n_experts,
+                       m.capacity_factor, cfg.activation)
+    return x + out.reshape(b, s, d), aux
+
+
+class _GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None
+
+
+def grad_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Identity whose backward casts the cotangent to `dtype`: the float32
+    gradient of the loss's log-softmax then reaches the layer stack in the
+    parameter dtype."""
+    return _GradCast.apply(x, dtype)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """`embed[tokens]` (`tokens [B, S]` -> `[B, S, d]`) through
+    `ops.gather_rows`: its backward is the ⊕ = sum of the gradient rows
+    into the table, the combine kernel on a CUDA tensor."""
+    b, s = tokens.shape
+    return ops.gather_rows(embed, tokens.reshape(-1)).reshape(b, s, -1)
 
 
 def _logits(params: LM, x, cfg: LMConfig):
@@ -163,17 +214,45 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)[:, None, :]
 
 
-def lm_forward(params: LM, tokens: torch.Tensor, cfg: LMConfig
-               ) -> torch.Tensor:
-    """tokens `[B, S]` -> logits `[B, S, padded_vocab]`."""
-    _refuse_moe(cfg)
+def _layer(p: Layer, x, cfg: LMConfig, positions):
+    x, _ = _attention_block(p, x, cfg, positions)
+    x, aux = _ffn_block(p, x, cfg)
+    return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+
+def lm_forward(params: LM, tokens: torch.Tensor, cfg: LMConfig):
+    """tokens `[B, S]` -> (logits `[B, S, padded_vocab]`, the MoE aux loss
+    averaged over the layers, a float32 scalar; 0 for a dense config).
+    With `cfg.remat` and autograd recording, each layer is checkpointed
+    and recomputed in the backward."""
     b, s = tokens.shape
-    x = params.embed[tokens]
+    x = embed_lookup(params.embed, tokens)
     positions = _positions(b, s, tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for p in params.layers:
-        x, _ = _attention_block(p, x, cfg, positions)
-        x = _ffn_block(p, x, cfg)
-    return _logits(params, x, cfg)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _layer, p, x, cfg, positions, use_reentrant=False)
+        else:
+            x, a = _layer(p, x, cfg, positions)
+        aux = aux + a
+    x = grad_cast(x, cfg.param_dtype)
+    return _logits(params, x, cfg), aux / cfg.n_layers
+
+
+def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: LMConfig,
+            aux_weight: float = 0.01):
+    """Mean next-token cross entropy in float32 over the `mask`ed
+    positions (all when absent), plus `aux_weight` times the MoE aux loss:
+    (loss, {"ce": ..., "moe_aux": ...})."""
+    logits, aux = lm_forward(params, batch["tokens"], cfg)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    mask = batch.get("mask")
+    mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + aux_weight * aux, {"ce": loss, "moe_aux": aux}
 
 
 # ------------------------------------------------------------------ serving
@@ -192,7 +271,6 @@ def prefill(params: LM, tokens: torch.Tensor, cfg: LMConfig,
             max_len: Optional[int] = None):
     """Run the full prompt; returns (last-token logits `[B, V]`, a cache of
     `max_len` positions holding the prompt's k/v)."""
-    _refuse_moe(cfg)
     b, s = tokens.shape
     max_len = max_len or s
     cache = init_cache(cfg, b, max_len, params.embed.dtype, tokens.device)
@@ -200,7 +278,7 @@ def prefill(params: LM, tokens: torch.Tensor, cfg: LMConfig,
     positions = _positions(b, s, tokens.device)
     for i, p in enumerate(params.layers):
         x, (k, v) = _attention_block(p, x, cfg, positions)
-        x = _ffn_block(p, x, cfg)
+        x, _ = _ffn_block(p, x, cfg)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     cache["len"].fill_(s)
@@ -217,7 +295,6 @@ def decode_step(params: LM, cache: Dict[str, torch.Tensor],
     cache as `dynamic_update_slice` clamps, free slots included, and every
     slot's `len` grows by one: the JAX package's step, row for row.
     """
-    _refuse_moe(cfg)
     b = token.shape[0]
     max_len = cache["k"].shape[2]
     x = params.embed[token[:, None]]                          # [B, 1, D]
@@ -232,6 +309,6 @@ def decode_step(params: LM, cache: Dict[str, torch.Tensor],
         v_c[rows, slot] = v[:, 0]
         o = decode_attention(q, k_c, v_c, pos)
         x = x + o.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p.wo
-        x = _ffn_block(p, x, cfg)
+        x, _ = _ffn_block(p, x, cfg)
     cache["len"] += 1
     return _logits(params, x, cfg)[:, 0], cache

@@ -5,7 +5,8 @@ decode paths; the counterpart of `repro/nn/attention.py`.
 JAX package it is `flash_attention_jax`, the pure-XLA twin of the Pallas
 flash kernel; here it is `kernels.ops.flash_attention`, which on a CUDA
 tensor always launches the hand-written kernel (K3) and on a CPU tensor
-runs its plain version.  Forward only: the backward comes with training.
+runs its plain version; under autograd its backward is K3's backward
+kernel (the plain backward on a CPU tensor).
 
 Layouts are the JAX package's: q `[B, S, Kv, G, H]`, k/v `[B, S, Kv, H]`.
 """
@@ -15,15 +16,18 @@ import math
 
 import torch
 
+from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 
 
 def rope_freqs(d_head: int, theta: float = 10000.0,
-               device="cpu") -> torch.Tensor:
+               device="cuda") -> torch.Tensor:
+    """`[d_head / 2]` rotation frequencies on `device` (CUDA unless the
+    caller asks for the CPU; without a card CUDA raises)."""
     exps = torch.arange(0, d_head, 2, dtype=torch.float32,
-                        device=device) / d_head
+                        device=resolve_device(device)) / d_head
     return 1.0 / (theta ** exps)
 
 

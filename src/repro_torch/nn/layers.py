@@ -9,6 +9,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.engine import resolve_device
+
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, scale: Optional[float] = None
@@ -21,8 +23,10 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     return (w * scale).to(dtype)
 
 
-def rmsnorm_init(d: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    return torch.ones((d,), dtype=dtype, device=device)
+def rmsnorm_init(d: int, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """Unit gains `[d]` on `device` (CUDA unless the caller asks for the
+    CPU; without a card CUDA raises)."""
+    return torch.ones((d,), dtype=dtype, device=resolve_device(device))
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,

@@ -54,15 +54,21 @@ class AdamW(torch.optim.Optimizer):
         self.steps = 0
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, grads=None):
+        """One update.  `grads`, when given, are the gradients to use in
+        parameter order (any float dtype, e.g. the float32 output of
+        gradient decompression for bfloat16 parameters) in place of each
+        parameter's `.grad`."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
         items = [(group, p) for group in self.param_groups
                  for p in group["params"]]
-        g32 = [(torch.zeros_like(p, dtype=torch.float32) if p.grad is None
-                else p.grad.to(torch.float32)) for _, p in items]
+        if grads is None:
+            grads = [p.grad for _, p in items]
+        g32 = [(torch.zeros_like(p, dtype=torch.float32) if g is None
+                else g.to(torch.float32)) for (_, p), g in zip(items, grads)]
         if self.clip_norm is not None and g32:
             gn = global_norm(g32)
             scale = torch.clamp(self.clip_norm / torch.clamp(gn, min=1e-9),

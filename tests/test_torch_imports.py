@@ -169,31 +169,34 @@ def test_cuda_entry_points_raise_without_a_card():
 
 def test_lm_entry_points_raise_without_a_card():
     """`init_lm`, `params_from_numpy`, `init_cache`, `ContinuousBatcher`
-    and the serve launcher default to CUDA and refuse it without a card;
-    `device="cpu"` runs."""
+    and the serve and train launchers default to CUDA and refuse it
+    without a card; `device="cpu"` runs."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: CUDA is a valid request here")
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import ContinuousBatcher
     cfg = serve.reduced_lm_config(get_config("smollm-135m")[0], layers=1,
                                   d_model=32, n_heads=2, n_kv=1, d_head=16,
                                   d_ff=32, vocab=128)
     params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    tree = {"embed": params.embed.numpy(), "ln_out": params.ln_out.numpy(),
-            "head": params.head.numpy(),
-            "layers": {n: np.stack([getattr(params.layers[0], n).numpy()])
+    tree = {"embed": params.embed.detach().numpy(),
+            "ln_out": params.ln_out.detach().numpy(),
+            "head": params.head.detach().numpy(),
+            "layers": {n: np.stack([getattr(params.layers[0],
+                                            n).detach().numpy()])
                        for n in ("ln_attn", "wq", "wk", "wv", "wo",
                                  "ln_ffn")}}
-    tree["layers"]["ffn"] = {n: np.stack([w.numpy()]) for n, w in
+    tree["layers"]["ffn"] = {n: np.stack([w.detach().numpy()]) for n, w in
                              params.layers[0].ffn.items()}
     calls = (lambda: tfm.init_lm(cfg, torch.Generator()),
              lambda: tfm.init_lm(cfg, torch.Generator(), device="cuda:0"),
              lambda: tfm.params_from_numpy(tree, cfg),
              lambda: tfm.init_cache(cfg, 2, 8),
              lambda: ContinuousBatcher(params, cfg, 2, 8),
-             lambda: serve.main(["--batch", "1", "--gen", "2"]))
+             lambda: serve.main(["--batch", "1", "--gen", "2"]),
+             lambda: train.main(["--steps", "1", "--batch", "1"]))
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -209,8 +212,8 @@ def test_lm_entry_points_raise_without_a_card():
 def test_gnn_entry_points_raise_without_a_card():
     """`init_gnn`, `params_from_numpy`, `GraphBatch.build` and
     `GraphBatch.to` default to CUDA and refuse it without a card;
-    `device="cpu"` runs.  The configs not ported yet (the MoE ones) name
-    their slice; dimenet, mace and autoint resolve."""
+    `device="cpu"` runs.  Every config resolves: dimenet, mace, autoint
+    and the MoE LMs included."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: CUDA is a valid request here")
     from repro_torch.configs import get_config
@@ -236,11 +239,9 @@ def test_gnn_entry_points_raise_without_a_card():
     assert all(torch.equal(a, b) for a, b in zip(gnn.parameters(back),
                                                  gnn.parameters(params)))
     assert batch.to("cpu").routes.dst.tolist() == [1, 2]
-    for arch in ("qwen3-moe-30b-a3b", "granite-moe-1b-a400m"):
-        with pytest.raises(KeyError, match="MoE slice"):
-            get_config(arch)
     for arch, family in (("dimenet", "gnn"), ("mace", "gnn"),
-                         ("autoint", "recsys")):
+                         ("autoint", "recsys"), ("qwen3-moe-30b-a3b", "lm"),
+                         ("granite-moe-1b-a400m", "lm")):
         assert get_config(arch)[0].name == arch
         assert get_config(arch)[1] == family
 
@@ -327,3 +328,40 @@ def test_world_refuses_cuda_without_a_card():
     for kw in ({}, {"backend": "gloo"}, {"backend": "nccl"}):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_world(print, 2, **kw)
+
+
+SLICE12_MODULES = ("repro_torch.nn.moe", "repro_torch.launch.train",
+                   "repro_torch.checkpoint.manager",
+                   "repro_torch.data.tokens", "repro_torch.optim.compression",
+                   "repro_torch.configs.granite_moe_1b_a400m",
+                   "repro_torch.configs.qwen3_moe_30b_a3b")
+
+
+@pytest.mark.parametrize("module", SLICE12_MODULES)
+def test_moe_and_training_modules_stand_alone(module):
+    """The MoE layer, the training launcher, checkpoints, the token stream
+    and gradient compression import on their own, with neither `jax` nor
+    `repro` loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
+def test_layer_helpers_default_to_cuda_and_raise_without_a_card():
+    """`rmsnorm_init` and `rope_freqs` default to CUDA through
+    `resolve_device`, as every public function of the port does: with no
+    card and no `device` they raise; `device="cpu"` runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: CUDA is a valid request here")
+    from repro_torch.nn.attention import rope_freqs
+    from repro_torch.nn.layers import rmsnorm_init
+    for call in (lambda: rmsnorm_init(8), lambda: rope_freqs(16)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert rmsnorm_init(8, device="cpu").device.type == "cpu"
+    assert rope_freqs(16, device="cpu").shape == (8,)

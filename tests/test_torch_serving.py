@@ -37,7 +37,7 @@ def model():
 def _offline_greedy(params, cfg, prompt, n):
     toks = list(prompt)
     for _ in range(n):
-        logits = tfm.lm_forward(params, torch.tensor([toks]), cfg)
+        logits, _ = tfm.lm_forward(params, torch.tensor([toks]), cfg)
         toks.append(int(torch.argmax(logits[0, -1])))
     return toks[len(prompt):]
 

@@ -18,10 +18,11 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.configs.base import LM_SHAPES as JAX_LM_SHAPES
 from repro.launch.train import reduced_lm_config as jreduced
 from repro.models import transformer as jtfm
 from repro_torch.configs import get_config
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import LM_SHAPES, LMConfig
 from repro_torch.launch.serve import reduced_lm_config
 from repro_torch.models import transformer as tfm
 
@@ -47,22 +48,25 @@ def _tokens(seed, b, s, vocab=256):
 
 
 def test_configs_match_the_jax_package():
-    """The same fields and values; param_dtype is a torch dtype."""
-    for arch in ("smollm-135m", "nemotron-4-15b", "command-r-plus-104b"):
+    """The same fields and values, dense and MoE, and the same step shapes;
+    param_dtype is a torch dtype."""
+    for arch in ("smollm-135m", "nemotron-4-15b", "command-r-plus-104b",
+                 "qwen3-moe-30b-a3b", "granite-moe-1b-a400m"):
         cfg, fam = get_config(arch)
         jcfg, jfam = jget_config(arch)
         assert fam == jfam == "lm"
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert cfg.padded_vocab == jcfg.padded_vocab
         assert cfg.param_count() == jcfg.param_count()
+        assert cfg.active_param_count() == jcfg.active_param_count()
         assert cfg.param_dtype == torch.bfloat16
         small = dataclasses.asdict(reduced_lm_config(cfg, **SMALL))
         assert small == dataclasses.asdict(jreduced(jcfg, **SMALL))
+    assert get_config("qwen3-moe-30b-a3b")[0].moe.n_experts == 128
     assert [f.name for f in dataclasses.fields(LMConfig)] == [
         f.name for f in dataclasses.fields(type(jget_config(ARCHS[0])[0]))]
-    for arch in ("qwen3-moe-30b-a3b", "granite-moe-1b-a400m"):
-        with pytest.raises(KeyError, match="MoE slice"):
-            get_config(arch)
+    assert [dataclasses.asdict(s) for s in LM_SHAPES] == [
+        dataclasses.asdict(s) for s in JAX_LM_SHAPES]
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
     assert get_config("gcn-cora")[1] == "gnn"     # the GNN slice's config
@@ -89,11 +93,14 @@ def test_params_from_numpy_round_trip(model):
 
 
 def test_params_from_numpy_refuses_moe_and_a_missing_head(model):
+    """A dense tree for an MoE config is refused, and so is a missing
+    head; the MoE tree itself round-trips (`test_moe_params_from_numpy_
+    round_trip`)."""
     _, _, cfg, _, tree, _ = model
     moe_cfg = reduced_lm_config(get_config("smollm-135m")[0], **SMALL)
     from repro_torch.configs.base import MoESpec
     moe_cfg = dataclasses.replace(moe_cfg, moe=MoESpec(4, 2, 32))
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(ValueError, match="no 'moe'"):
         tfm.params_from_numpy(tree, moe_cfg, device="cpu")
     headless = {k: v for k, v in tree.items() if k != "head"}
     with pytest.raises(ValueError, match="head"):
@@ -103,11 +110,12 @@ def test_params_from_numpy_refuses_moe_and_a_missing_head(model):
 def test_lm_forward_matches_jax(model):
     _, jcfg, cfg, jparams, _, params = model
     toks = _tokens(0, 2, 21)
-    got = tfm.lm_forward(params, torch.from_numpy(toks), cfg)
+    got, aux = tfm.lm_forward(params, torch.from_numpy(toks), cfg)
     want, _ = jtfm.lm_forward(jparams, jnp.asarray(toks), jcfg)
     assert got.shape == (2, 21, cfg.padded_vocab)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
-                               atol=1e-4)
+    assert float(aux) == 0.0                      # dense: no MoE aux loss
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_prefill_and_three_decode_steps_match_jax(model):
@@ -181,7 +189,81 @@ def test_init_lm_shapes_dtypes_and_seed():
     assert a.head.shape == (cfg.d_model, cfg.padded_vocab)
     std = a.layers[0].wq.float().std().item()
     assert abs(std - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
-    logits = tfm.lm_forward(a, torch.from_numpy(_tokens(4, 1, 9)), cfg)
+    with torch.no_grad():
+        logits, _ = tfm.lm_forward(a, torch.from_numpy(_tokens(4, 1, 9)),
+                                   cfg)
     assert logits.dtype == torch.bfloat16 and torch.isfinite(logits).all()
     with pytest.raises(ValueError, match="generator"):
         tfm.init_lm(cfg, torch.Generator(), device="meta")
+
+
+# ---------------------------------------------------------- MoE configs
+@pytest.fixture(scope="module")
+def granite():
+    """Reduced granite-moe-1b-a400m (`reduced_lm_config`: 4 layers,
+    d_model 128, 8 experts top-8) on JAX's `init_lm` weights."""
+    jcfg = jreduced(jget_config("granite-moe-1b-a400m")[0])
+    cfg = reduced_lm_config(get_config("granite-moe-1b-a400m")[0])
+    jparams = jtfm.init_lm(jax.random.PRNGKey(1), jcfg)
+    tree = jax.tree.map(np.array, jparams)
+    return jcfg, cfg, jparams, tree, tfm.params_from_numpy(tree, cfg,
+                                                           device="cpu")
+
+
+def test_moe_params_from_numpy_round_trip(granite):
+    """The stacked `[L, E, ...]` expert tensors land in each layer's
+    `moe` dict as they are (the router float32), and init_lm builds the
+    same structure."""
+    _, cfg, _, tree, params = granite
+    for i, layer in enumerate(params.layers):
+        assert not hasattr(layer, "ffn")
+        assert set(layer.moe) == set(tree["layers"]["moe"]) == {
+            "router", "w_in", "w_gate", "w_out"}
+        for name, arr in tree["layers"]["moe"].items():
+            assert torch.equal(layer.moe[name], torch.from_numpy(arr[i]))
+    assert params.layers[0].moe["w_in"].shape == (
+        cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert)
+    n = sum(p.numel() for p in params.parameters())
+    assert n == cfg.param_count() + 2 * (cfg.padded_vocab - cfg.vocab) * \
+        cfg.d_model
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    init = tfm.init_lm(bf, torch.Generator().manual_seed(0), device="cpu")
+    assert [n for n, _ in init.named_parameters()] == [
+        n for n, _ in params.named_parameters()]
+    assert init.layers[1].moe["router"].dtype == torch.float32
+    assert init.layers[1].moe["w_out"].dtype == torch.bfloat16
+
+
+def test_moe_prefill_and_three_decode_steps_match_jax(granite):
+    """Reduced granite: prefill plus three decode steps, logits within
+    1e-5 of JAX's and the caches within 1e-5."""
+    jcfg, cfg, jparams, _, params = granite
+    toks = _tokens(5, 2, 13, vocab=cfg.vocab)
+    logits, cache = tfm.prefill(params, torch.from_numpy(toks), cfg,
+                                max_len=17)
+    jlogits, jcache = jtfm.prefill(jparams, jnp.asarray(toks), jcfg,
+                                   max_len=17)
+    for step in range(4):
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   rtol=1e-5, atol=1e-5)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(cache[key].numpy(),
+                                       np.asarray(jcache[key]), rtol=1e-5,
+                                       atol=1e-5)
+        if step == 3:
+            break
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        logits, cache = tfm.decode_step(params, cache, tok, cfg)
+        jlogits, jcache = jtfm.decode_step(jparams, jcache,
+                                           jnp.asarray(tok.numpy()), jcfg)
+
+
+def test_moe_lm_forward_matches_jax(granite):
+    jcfg, cfg, jparams, _, params = granite
+    toks = _tokens(6, 2, 19, vocab=cfg.vocab)
+    with torch.no_grad():
+        got, aux = tfm.lm_forward(params, torch.from_numpy(toks), cfg)
+    want, jaux = jtfm.lm_forward(jparams, jnp.asarray(toks), jcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)

@@ -304,3 +304,23 @@ def autoint_rank_main(comm, table, ids, params_np, cfg, out_dir) -> int:
     np.savez(Path(out_dir) / f"rank{comm.rank}.npz",
              **autoint_sharded_case(table, ids, params_np, cfg, comm))
     return comm.rank
+
+
+# --------------------------------------------- MoE, experts sharded over ranks
+def moe_sharded_case(params_np, x, top_k, n_experts, cf, comm) -> dict:
+    """`moe_ffn` with the experts split evenly over `comm`'s shards, each
+    process holding its own: the whole output and the aux loss."""
+    from repro_torch.nn.moe import moe_ffn
+    e_loc = n_experts // comm.k
+    shards = [{name: torch.from_numpy(a if name == "router" else
+                                      a[s * e_loc:(s + 1) * e_loc])
+               for name, a in params_np.items()} for s in comm.shards]
+    out, aux = moe_ffn(shards, torch.from_numpy(x), top_k, n_experts, cf,
+                       comm=comm)
+    return {"out": out.numpy(), "aux": aux.numpy()}
+
+
+def moe_rank_main(comm, params_np, x, top_k, n_experts, cf, out_dir) -> int:
+    np.savez(Path(out_dir) / f"rank{comm.rank}.npz",
+             **moe_sharded_case(params_np, x, top_k, n_experts, cf, comm))
+    return comm.rank

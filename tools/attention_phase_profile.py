@@ -109,10 +109,10 @@ def main() -> int:
     want = fa.flash_attention_cuda(q, k, v, causal)     # the kernel itself
     torch.cuda.synchronize()
     fn = ctypes.CDLL(str(lib)).flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fa._LAUNCH = fn
+    fa._LAUNCH["flash_attention"] = fn
     print(f"case {case[0]}: {chip_smoke.nvidia_smi_line()}", flush=True)
     got = fa.flash_attention_cuda(q, k, v, causal)
     torch.cuda.synchronize()

@@ -3,6 +3,7 @@
 `chip_smoke.py`, for one tree of the port, on one NVIDIA card.
 
   python3 tools/bench_attention.py [--src DIR] [--reps 10] [--cases a,b]
+                                   [--backward]
 
 `--src` names the `src` directory whose `repro_torch` is measured (default:
 this tree's), e.g. that of an unpacked `git archive` of another commit, so
@@ -15,6 +16,13 @@ time and the card's name and power limit.  Then, for each case, the
 device time of one kernel launch and of one SDPA call from the profiler,
 which leaves out the host time that the CUDA-event times include, and the
 host time of each call (`attention_device` lines).
+
+`--backward` runs the backward's cases instead
+(`chip_smoke.attention_backward_phase` at `ATTN_BWD_CASES`: the forward's
+row statistic against the plain one, the backward kernel against its plain
+version and two launches bitwise equal; kernel, device, plain and SDPA
+backward times, and at the LM training shapes the profiler's device times
+of the kernel and of SDPA's backward; `attention_backward_case` lines).
 """
 from __future__ import annotations
 
@@ -88,6 +96,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--cases", default="",
                     help="comma-separated case names (default: all)")
+    ap.add_argument("--backward", action="store_true",
+                    help="the backward kernel's cases instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_attention: needs an NVIDIA card", file=sys.stderr)
@@ -106,13 +116,20 @@ def main() -> int:
           flush=True)
     t0 = time.perf_counter()
     _build.load("flash_attention")
+    if args.backward:
+        _build.load("flash_attention_bwd")
     print(f"build_s={time.perf_counter() - t0:.3f}", flush=True)
-    cases = chip_smoke.ATTN_CASES
+    cases = (chip_smoke.ATTN_BWD_CASES if args.backward
+             else chip_smoke.ATTN_CASES)
     if args.cases:
         wanted = args.cases.split(",")
         cases = tuple(c for c in cases if c[0] in wanted)
-        if len(cases) != len(wanted):
+        if len(cases) < len(wanted):
             raise SystemExit(f"unknown case in {wanted}")
+    if args.backward:
+        chip_smoke.attention_backward_phase(args.reps, cases, profile=True)
+        print(smi, flush=True)
+        return 0
     chip_smoke.attention_kernel_phase(args.reps, cases)
     for case in cases:
         print("attention_device", json.dumps(device_times(chip_smoke, fa,
