@@ -4087,6 +4087,7 @@ ATTN_BWD_REPLACES = "src/repro/nn/attention.py:90"
 BWD_F32_RTOL = 1e-4          # of |ref|: f32 sums in another order
 BWD_BF16_RTOL = 2.0 ** -7    # one bf16 ulp: both round the same f32 sum
 BWD_ATOL = 1e-4              # of the row's plus the tensor's RMS
+BWD_BF16_FLIPS = 2.0 ** -6   # of the rounded terms' l2 norm (bf16)
 LSE_TOL = 1e-4           # of 1 + |lse|: the forward's row statistic
 _BWD_SMALL = (  # name, B, Sq, Sk, Kv, G, H, causal: each in f32 and bf16
     ("causal_g3_h64", 2, 256, 256, 2, 3, 64, True),
@@ -4122,45 +4123,130 @@ def attention_bwd_bound(b, sq, sk, kv, g, h, causal, dtype):
                                  else "bytes")
 
 
-def bwd_error_ratio(got, want) -> float:
+def bwd_error_ratio(got, want, terms=None) -> float:
     """Worst |got - want| over its limit; above 1 fails.  The relative
     part: 1e-4 of |want| in float32 (the sums run in another order), one
     bf16 ulp in bf16 (kernel and plain both round a float32 sum of the
     same terms).  The absolute part, 1e-4 of the row's RMS plus the whole
     tensor's: dS = p·(dO·vᵀ − δ) cancels to rounding noise where a row's
     probabilities are one-hot (query row 0 sees key 0 alone), and there a
-    row's exact value is 0 and the noise depends on the sum order."""
+    row's exact value is 0 and the noise depends on the sum order.  In
+    bf16, `terms` (the l2 norm of the terms each output sums, from
+    `masked_bwd_plain`) adds BWD_BF16_FLIPS of it: p and dS are rounded to
+    bf16 before their products, as JAX rounds them (`_flash_bwd_rule`'s
+    `astype(q.dtype)`), from float32 values that kernel and plain compute
+    in another order, so a share of those roundings (0.1-0.4% measured in
+    a CPU emulation of the kernel's arithmetic) go the other way, each
+    moving one term by at most 2^-8 of it; up to 16 such flips of one sum,
+    signs aligned, stay within 2^-6 of the terms' l2 norm."""
     w = want.float()
     rms = (w.pow(2).mean(-1, keepdim=True).sqrt()
            + w.pow(2).mean().sqrt())
     rtol = BWD_F32_RTOL if want.dtype == torch.float32 else BWD_BF16_RTOL
     limit = rtol * w.abs() + BWD_ATOL * rms
+    if terms is not None and want.dtype != torch.float32:
+        limit = limit + BWD_BF16_FLIPS * terms
     return float(((got.float() - w).abs() / limit.clamp(min=1e-30)).max())
 
 
-def hold_attention_backward(name, q, k, v, o, lse, dout, causal):
+def masked_bwd_plain(q, k, v, o, lse, dout, mask, keep_delta=None,
+                     norms=False):
+    """`flash_attention_bwd_plain` under an explicit [Sq, Sk] mask, with δ
+    times `keep_delta` [Sq] where given; with `norms`, also the l2 norm of
+    the (rounded) terms that each of dQ, dK and dV sums, in float32."""
+    from repro_torch.kernels.flash_attention import NEG_INF
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, dof = q.float(), k.float(), dout.float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf) * scale
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    del s
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dof, v.float())
+    delta = torch.einsum("bqkgh,bqkgh->bkgq", dof, o.float())
+    if keep_delta is not None:
+        delta = delta * keep_delta
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    del dp
+    p = p.to(q.dtype).float()
+    out = (torch.einsum("bkgqs,bskh->bqkgh", ds, kf).to(q.dtype),
+           torch.einsum("bkgqs,bqkgh->bskh", ds, qf).to(k.dtype),
+           torch.einsum("bkgqs,bqkgh->bskh", p, dof).to(v.dtype))
+    if not norms:
+        return out
+    ds, p = ds.square_(), p.square_()
+    return out, (
+        torch.einsum("bkgqs,bskh->bqkgh", ds, kf.square()).sqrt_(),
+        torch.einsum("bkgqs,bqkgh->bskh", ds, qf.square()).sqrt_(),
+        torch.einsum("bkgqs,bqkgh->bskh", p, dof.square()).sqrt_())
+
+
+def bwd_planted_fault_ratios(q, k, v, o, lse, dout, want, terms):
+    """Error ratios (the worst of dQ, dK, dV) of three causal-kernel
+    faults planted in the plain backward: one kv tile skipped for the last
+    query tile, key i + 1 leaking into row i there, and δ dropped for that
+    tile.  Modelled on the forward's `planted_fault_ratios`."""
+    sq = q.shape[1]
+    pos = torch.arange(sq, device=q.device)
+    causal = pos[:, None] >= pos[None, :]
+    got = masked_bwd_plain(q, k, v, o, lse, dout, causal)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("masked_bwd_plain differs from the plain "
+                             "backward")
+    last = pos[:, None] >= sq - 64
+    kv_tile = (pos[None, :] >= 64) & (pos[None, :] < 128)
+    faults = {
+        "skip_kv_tile": (causal & ~(last & kv_tile), None),
+        "mask_leak": (causal | (last & (pos[None, :] == pos[:, None] + 1)),
+                      None),
+        "drop_delta": (causal, (pos < sq - 64).float())}
+    ratios = {}
+    for name, (mask, keep) in faults.items():
+        planted = masked_bwd_plain(q, k, v, o, lse, dout, mask, keep)
+        ratios[name] = max(bwd_error_ratio(a, w, t)
+                           for a, w, t in zip(planted, want, terms))
+        del planted
+    return ratios
+
+
+def hold_attention_backward(name, q, k, v, o, lse, dout, causal,
+                            faults=False):
     """The backward kernel against the plain version on one call's
-    inputs, and two launches bitwise equal; returns its record."""
+    inputs, and two launches bitwise equal; returns its record.  With
+    `faults` (causal, Sq = Sk), also the planted faults' ratios, each of
+    which must exceed the limit."""
     from repro_torch.kernels import flash_attention as fa
     first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal)
     second = fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal)
     plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, dout, causal)
+    terms = (None, None, None)
+    if q.dtype != torch.float32:
+        sq, sk = q.shape[1], k.shape[1]
+        mask = fa._visible(sq, sk, causal, q.device)
+        _, terms = masked_bwd_plain(q, k, v, o, lse, dout, mask, norms=True)
     torch.cuda.synchronize()
     rec = {"max_abs_err": 0.0, "err_ratio": 0.0}
-    for label, a, b2, want in zip(("dq", "dk", "dv"), first, second, plain):
+    for label, a, b2, want, t in zip(("dq", "dk", "dv"), first, second,
+                                     plain, terms):
         if not torch.equal(a, b2):
             raise AssertionError(f"attention backward {name}: two launches "
                                  f"differ in {label}")
         if not torch.isfinite(a).all():
             raise AssertionError(f"attention backward {name}: non-finite "
                                  f"{label}")
-        ratio = bwd_error_ratio(a, want)
+        ratio = bwd_error_ratio(a, want, t)
         if ratio > 1.0:
             raise AssertionError(f"attention backward {name}: {label} error "
                                  f"{ratio} x its limit")
         rec["max_abs_err"] = max(rec["max_abs_err"], float(
             (a.float() - want.float()).abs().max()))
         rec["err_ratio"] = max(rec["err_ratio"], ratio)
+    if faults:
+        rec["fault_ratios"] = bwd_planted_fault_ratios(
+            q, k, v, o, lse, dout, plain, terms)
+        if min(rec["fault_ratios"].values()) <= 1.0:
+            raise AssertionError(f"attention backward {name}: a planted "
+                                 f"fault passes the check "
+                                 f"{rec['fault_ratios']}")
     return rec
 
 
@@ -4196,7 +4282,8 @@ def attention_backward_phase(reps, cases=ATTN_BWD_CASES, profile=False):
                "H": h, "causal": causal, "dtype": str(dt).split(".")[-1],
                "lse_err_ratio": lse_ratio}
         rec.update(hold_attention_backward(name, q, k, v, o, lse, dout,
-                                           causal))
+                                           causal,
+                                           faults=name == "smollm_train"))
 
         def kernel():
             return fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal)

@@ -9,12 +9,18 @@ one `RankResult` a rank, in rank order, with what `fn` returned (pickled
 back to the parent, so keep it small: write large results to files).
 
 A rank's exception reaches the parent with its traceback and is raised
-there as `RankError`; the other ranks are then ended.  A rank that exits
+there as `RankError`.  One rank's failure often makes the others fail in
+their pending collectives, and their reports can reach the parent first,
+so after the first failed report the parent reads on until every rank has
+reported or exited (at most `FAILURE_GRACE_S` more seconds, never past the
+timeout) and raises one `RankError` with every failed rank's traceback in
+rank order; the other ranks are then ended.  A rank that exits
 without reporting, or a world that has not finished by `timeout` seconds,
 is an error too: every collective carries the same timeout
 (`init_process_group(timeout=...)`), so a hung collective ends as an
 exception inside it, and the parent kills whatever is still running when
-it gives up.  Each rank calls `destroy_process_group` on its way out.
+it gives up.  Each rank reports, then calls `destroy_process_group` on its
+way out.
 
 `fn` must be importable by name (a module-level function), and so must
 its arguments be picklable: spawned processes start from a fresh import.
@@ -36,6 +42,7 @@ import torch.distributed as dist
 from repro_torch.dist.comm import ProcessGroupComm
 
 BACKENDS = ("gloo", "nccl")
+FAILURE_GRACE_S = 5.0   # reading on after the first failed report
 
 
 class RankError(RuntimeError):
@@ -100,10 +107,61 @@ def _rank_main(rank, world_size, port, backend, device, timeout, fn, args,
         value = pickle.dumps(fn(comm, *args))
     except BaseException:           # reported to the parent, which raises
         status, value = "error", traceback.format_exc()
+    # report before the teardown, which fails the others' pending collectives
+    try:
+        results.put((status, rank, value, t0 - spawned_at, init_s))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    results.put((status, rank, value, t0 - spawned_at, init_s))
+
+
+def collect_reports(results, procs: Sequence, deadline: float,
+                    grace: float = FAILURE_GRACE_S) -> List[RankResult]:
+    """Read one report a rank from `results` (a queue of `(status, rank,
+    value, spawn_s, init_s)`) while `procs` (one a rank, with `name` and
+    `exitcode`) run; returns the `RankResult`s in rank order.  Raises
+    `RankError` when a rank failed, exited without a report or had not
+    reported by `deadline` (a `time.monotonic()` value).  After the first
+    failed report it reads on for at most `grace` seconds, until every
+    other rank has reported or exited, and the error holds every failed
+    rank's traceback in rank order: no guess is made at which one caused
+    the others."""
+    world_size = len(procs)
+    done, failed = {}, {}
+    until = deadline
+    while len(done) + len(failed) < world_size:
+        try:
+            status, rank, value, spawn_s, init_s = results.get(timeout=0.2)
+        except queue.Empty:
+            silent = [r for r in range(world_size)
+                      if r not in done and r not in failed]
+            dead = [procs[r].name for r in silent
+                    if procs[r].exitcode is not None]
+            if failed:
+                if time.monotonic() > until or (len(dead) == len(silent)
+                                                and results.empty()):
+                    break
+                continue
+            if dead and results.empty():
+                raise RankError(f"{', '.join(dead)} exited without a "
+                                f"result (exit codes "
+                                f"{[p.exitcode for p in procs]})")
+            if time.monotonic() > deadline:
+                raise RankError(
+                    f"the world of {world_size} did not finish in time; "
+                    f"ranks done: {sorted(done)}")
+            continue
+        if status != "ok":
+            if not failed:
+                until = min(deadline, time.monotonic() + grace)
+            failed[rank] = value
+            continue
+        done[rank] = RankResult(rank, pickle.loads(value), spawn_s, init_s)
+    if failed:
+        raise RankError("\n".join(
+            f"rank {r} of {world_size} failed:\n{failed[r]}"
+            for r in sorted(failed)))
+    return [done[r] for r in range(world_size)]
 
 
 def run_world(fn: Callable, world_size: int, args: Sequence = (),
@@ -124,32 +182,11 @@ def run_world(fn: Callable, world_size: int, args: Sequence = (),
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout
-    done = {}
     try:
-        while len(done) < world_size:
-            try:
-                status, rank, value, spawn_s, init_s = results.get(
-                    timeout=0.2)
-            except queue.Empty:
-                dead = [p.name for r, p in enumerate(procs)
-                        if r not in done and p.exitcode is not None]
-                if dead and results.empty():
-                    raise RankError(f"{', '.join(dead)} exited without a "
-                                    f"result (exit codes "
-                                    f"{[p.exitcode for p in procs]})")
-                if time.monotonic() > deadline:
-                    raise RankError(
-                        f"the world of {world_size} did not finish in "
-                        f"{timeout} s; ranks done: {sorted(done)}")
-                continue
-            if status != "ok":
-                raise RankError(f"rank {rank} of {world_size} failed:\n"
-                                f"{value}")
-            done[rank] = RankResult(rank, pickle.loads(value), spawn_s,
-                                    init_s)
+        reports = collect_reports(results, procs, deadline)
         for p in procs:
             p.join(timeout=max(1.0, deadline - time.monotonic()))
-        return [done[r] for r in range(world_size)]
+        return reports
     finally:
         for p in procs:
             if p.is_alive():

@@ -2,7 +2,9 @@
 
 `csrc/<name>.cu` exposes a plain `extern "C"` launcher and compiles into a
 shared library under `kernels/_build/` (git-ignored), named by a hash of the
-source and flags, so an edited source never loads a stale library.  The
+source, the `csrc/` headers it includes (`#include "x.cuh"`, followed into
+the headers' own includes) and the flags, so an edited source or header
+never loads a stale library.  The
 build runs at first use, never at import: the CPU tests import every module
 on machines without `nvcc`.  A failed build raises with the compiler's
 output; nothing falls back.
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -38,9 +41,30 @@ def nvcc_path() -> str:
                        "kernels of repro_torch need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str, csrc: Path = CSRC) -> list:
+    """`csrc/<name>.cu` and every header of `csrc` it includes, directly
+    or through another header, in the order first met."""
+    found, todo = [], [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = csrc / inc.decode()
+            if header.is_file():
+                todo.append(header)
+    return found
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    digest = hashlib.sha1()
+    for path in sources(name, csrc):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -37,17 +37,21 @@ flash_attention_bwd.cu`, which replaces `_flash_bwd_rule` of
 `src/repro/nn/attention.py` (the JAX package's hand-written backward of
 `flash_attention_jax`): from (q, k, v, o, lse, dO) it returns (dQ, dK, dV)
 with dK and dV summed over the G query heads of a kv head, in two
-deterministic passes and a δ pre-pass (the source says how, its bound and
-what it leaves on the table).
+deterministic passes and a δ pre-pass; in bf16 both passes run their
+products on `wgmma` fed by TMA, with p and dS in registers (the source
+says how, its bound and what it leaves on the table).  Both sources
+include `csrc/hopper.cuh`, the TMA, mbarrier and `wgmma` building blocks
+they share.
 
 `flash_attention_plain` and `flash_attention_bwd_plain` are the plain
 PyTorch versions of the same functions: the full score matrix in float32,
 the same mask, softmax (`p` cast to the input dtype before `p·V` in the
-forward), the same backward formulas in float32.  The CPU tests use them
-and the chip smoke test holds the kernels against them; no code path on a
-CUDA tensor calls them.  `LAUNCHES` counts the forward kernel's launches,
-`LAUNCHES_BWD` the backward's (one a call of its wrapper, which launches
-its three kernels).
+forward), the same backward formulas in float32 (p and dS cast to the input
+dtype before the products that take them, as JAX casts them).  The CPU tests
+use them and the chip smoke test holds the kernels against them; no code
+path on a CUDA tensor calls them.  `LAUNCHES` counts the forward kernel's
+launches, `LAUNCHES_BWD` the backward's (one a call of its wrapper, which
+launches its three kernels).
 """
 from __future__ import annotations
 
@@ -108,7 +112,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, dout, causal: bool = True):
     """Plain backward: (dQ, dK, dV) in the inputs' layouts and dtypes from
     the forward's inputs, its output o, its row statistic `lse` and the
     output's gradient `dout`, every product in float32 on the full score
-    matrix (the formulas of `_flash_bwd_rule`)."""
+    matrix (the formulas of `_flash_bwd_rule`).  p is rounded to the input
+    dtype before dV and dS before dK and dQ, where `_flash_bwd_rule` casts
+    them (`p.astype(q.dtype)`, `ds.astype(q.dtype)`): the identity in
+    float32, and in bfloat16 the operands the kernel's tensor cores
+    take."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
     visible = _visible(q.shape[1], k.shape[1], causal, q.device)
@@ -116,7 +124,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, dout, causal: bool = True):
                                        - lse[..., None]), 0.0)
     dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
     delta = torch.einsum("bqkgh,bqkgh->bkgq", dof, o.float())
-    ds = p * (dp - delta[..., None]) * scale
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    p = p.to(q.dtype).float()
     dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf)
     dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qf)
     dv = torch.einsum("bkgqs,bqkgh->bskh", p, dof)
@@ -237,6 +246,8 @@ def _bwd_refusal(q, k, v, o, lse, dout):
                 f"{sq}], got {tuple(lse.shape)} {lse.dtype}")
     if not lse.is_contiguous() or lse.device != q.device:
         return "lse must be contiguous on q's device"
+    if dout.data_ptr() % 16:        # the bf16 kernels' TMA maps read it
+        return "dout must be 16-byte aligned"
     return _refusal(q, k, v)
 
 
@@ -248,8 +259,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     `flash_attention_cuda` takes them), its output o, its row statistic
     `lse` (float32 `[B, Kv, G, Sq]`, from `return_lse=True`) and the
     output's gradient `dout` (o's shape and dtype), all contiguous on one
-    card.  Returns (dQ, dK, dV) in q's and k's shapes and the input dtype.
-    Every product runs on CUDA-core FMAs in float32 (no TF32); no atomics.
+    card, q, k, v and dout 16-byte aligned.  Returns (dQ, dK, dV) in
+    q's and k's shapes and the input dtype.  bfloat16 runs on the tensor
+    cores (`wgmma` fed by TMA, p and dS rounded to bf16 as
+    `flash_attention_bwd_plain` rounds them), float32 on CUDA-core FMAs (no
+    TF32); no atomics, so two calls give the same bits.
 
     Raises on anything else, before any build or launch.
     """

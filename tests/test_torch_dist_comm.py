@@ -1,12 +1,16 @@
 """`ProcessGroupComm` (`repro_torch.dist.comm`) on a world of 4 gloo ranks
 on the CPU (`repro_torch.dist.world`), each call held bitwise against
 `StackedComm(4)` on the same numpy-seeded input, and the world's failure
-paths: a rank that raises, a rank that hangs, NCCL where it cannot run.
+paths: a rank that raises, two that raise, a rank that hangs, NCCL where
+it cannot run, and the parent's gathering of failed reports on a stub
+queue.
 
 One world a module runs every call (`comm_calls`, a module-level function
 the spawned ranks import) and returns each rank's results; each call is
 its own test.
 """
+import pickle
+import queue
 import time
 
 import numpy as np
@@ -14,7 +18,8 @@ import pytest
 import torch
 
 from repro_torch.dist.comm import StackedComm
-from repro_torch.dist.world import RankError, check_backend, run_world
+from repro_torch.dist.world import (RankError, check_backend,
+                                    collect_reports, run_world)
 
 K = 4
 WORLD_TIMEOUT = 120.0
@@ -72,6 +77,14 @@ def comm_calls(comm):
 def _raises(comm):
     if comm.rank == 2:
         raise KeyError("rank 2 planted this")
+    comm.pmax(torch.zeros(1, 1))       # the others wait in a collective
+
+
+def _two_raise(comm):
+    if comm.rank == 1:
+        raise KeyError("rank 1 planted this")
+    if comm.rank == 3:
+        raise ValueError("rank 3 planted that")
     comm.pmax(torch.zeros(1, 1))       # the others wait in a collective
 
 
@@ -141,6 +154,68 @@ def test_a_failing_rank_reaches_the_parent():
     with pytest.raises(RankError, match="rank 2 planted this"):
         run_world(_raises, K, device="cpu", timeout=WORLD_TIMEOUT)
     assert time.monotonic() - t0 < WORLD_TIMEOUT
+
+
+def test_two_failing_ranks_reach_the_parent_in_one_error():
+    t0 = time.monotonic()
+    with pytest.raises(RankError) as err:
+        run_world(_two_raise, K, device="cpu", timeout=WORLD_TIMEOUT)
+    assert time.monotonic() - t0 < WORLD_TIMEOUT
+    text = str(err.value)
+    assert "rank 1 planted this" in text and "rank 3 planted that" in text
+    assert text.index("rank 1 of 4 failed") < text.index("rank 3 of 4 failed")
+
+
+class _StubQueue:
+    """The reports a world would put, in the given order."""
+
+    def __init__(self, reports):
+        self.reports = list(reports)
+
+    def get(self, timeout):
+        if not self.reports:
+            time.sleep(min(timeout, 0.01))
+            raise queue.Empty
+        return self.reports.pop(0)
+
+    def empty(self):
+        return not self.reports
+
+
+class _StubProc:
+    def __init__(self, rank, exitcode):
+        self.name, self.exitcode = f"rank{rank}", exitcode
+
+
+@pytest.mark.parametrize("others", ["exited", "running"])
+def test_collect_reports_keeps_reading_after_a_bystander_error(others):
+    """A bystander's collective error reaches the parent before the rank
+    that caused it: both tracebacks end up in the one error, in rank
+    order, whether the silent ranks have exited or run on (the grace
+    period ends the wait)."""
+    bystander = ("error", 0, "RuntimeError: [gloo] Connection closed by "
+                 "peer", 0.1, 0.1)
+    planter = ("error", 2, "KeyError: 'rank 2 planted this'", 0.1, 0.1)
+    ok = ("ok", 1, pickle.dumps(7), 0.1, 0.1)
+    exitcode = 1 if others == "exited" else None
+    procs = [_StubProc(r, exitcode) for r in range(K)]
+    t0 = time.monotonic()
+    with pytest.raises(RankError) as err:
+        collect_reports(_StubQueue([bystander, planter, ok]), procs,
+                        deadline=time.monotonic() + 60.0, grace=0.5)
+    assert time.monotonic() - t0 < 5.0
+    text = str(err.value)
+    assert "rank 2 planted this" in text and "Connection closed" in text
+    assert text.index("rank 0 of 4 failed") < text.index("rank 2 of 4 failed")
+    assert "rank 1 of 4" not in text
+
+
+def test_collect_reports_returns_every_rank_in_order():
+    reports = [("ok", r, pickle.dumps(r * 10), 0.1, 0.2) for r in (2, 0, 1)]
+    got = collect_reports(_StubQueue(reports), [_StubProc(r, None)
+                                                for r in range(3)],
+                          deadline=time.monotonic() + 60.0)
+    assert [(r.rank, r.value) for r in got] == [(0, 0), (1, 10), (2, 20)]
 
 
 def test_a_hung_rank_ends_inside_the_timeout():

@@ -80,15 +80,15 @@ def instrumented_library() -> Path:
         if text.count(anchor) != 1:
             raise SystemExit(f"anchor not found once in the kernel: {anchor!r}")
         text = text.replace(anchor, probe)
-    text = text.replace("#include <stdint.h>\n",
-                        "#include <stdint.h>\n#include <cstdio>\n", 1)
+    text = "#include <cstdio>\n" + text
     out = _build.BUILD_DIR / "phase"
     out.mkdir(parents=True, exist_ok=True)
     src = out / "flash_attention_phase.cu"
     src.write_text(text)
     lib = out / "libflash_attention_phase.so"
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(src)], check=True)
+    # the copy includes the shared header from `csrc/`
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(lib), str(src)], check=True)
     return lib
 
 

@@ -12,12 +12,16 @@ and loads and static shared memory, and, from `cuobjdump -sass` of the
 built library, the count of the SASS instructions that show which hardware
 paths a kernel takes: HGMMA (`wgmma`), HMMA (`mma.sync`), UTMALDG (TMA
 tensor loads), SYNCS (mbarrier operations), MUFU (exp2 and other special
-functions).  `ptxas_warnings` also lists ptxas' "Potential Performance
-Loss" notes, such as a `wgmma` pipeline it had to serialise.
+functions), and `sass_sha1`, a digest of the kernel's SASS with the
+addresses and encodings left out: two trees whose kernel has the same
+digest run the same machine code, so give the same bits in the same time.
+`ptxas_warnings` also lists ptxas' "Potential Performance Loss" notes,
+such as a `wgmma` pipeline it had to serialise.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import shutil
@@ -74,21 +78,26 @@ def ptxas_info(text: str) -> dict:
     return info
 
 
-def sass_counts(lib: Path) -> dict:
-    """Per mangled kernel: counts of SASS_OPS in `cuobjdump -sass`."""
+def sass_counts(lib: Path) -> tuple:
+    """Per mangled kernel: counts of SASS_OPS in `cuobjdump -sass`, and
+    the sha1 of its instructions (addresses and encodings stripped)."""
     text = subprocess.run([tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
-    counts, cur = {}, None
+    counts, digests, cur = {}, {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
             cur = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
+            digests[m.group(1)] = hashlib.sha1()
             continue
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
-                      line)
-        if m and cur is not None and m.group(1) in cur:
-            cur[m.group(1)] += 1
-    return counts
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m is None or cur is None:
+            continue
+        digests[next(reversed(digests))].update(m.group(1).encode() + b"\n")
+        op = re.match(r"(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", m.group(1))
+        if op and op.group(1) in cur:
+            cur[op.group(1)] += 1
+    return counts, {k: d.hexdigest()[:16] for k, d in digests.items()}
 
 
 def report(name: str) -> None:
@@ -110,14 +119,15 @@ def report(name: str) -> None:
                        if "warning" in ln.lower()
                        or "Performance Loss" in ln})
     info = ptxas_info(proc.stdout + proc.stderr)
-    sass = sass_counts(lib)
+    sass, digests = sass_counts(lib)
     names = demangle(sorted(set(info) | set(sass)))
     print(json.dumps({"source": f"{name}.cu", "build_s": round(seconds, 3),
                       "ptxas_warnings": warnings}), flush=True)
     for mangled in sorted(set(info) | set(sass)):
         print(json.dumps({"source": f"{name}.cu", "kernel": names[mangled],
                           **info.get(mangled, {}),
-                          "sass": sass.get(mangled, {})}), flush=True)
+                          "sass": sass.get(mangled, {}),
+                          "sass_sha1": digests.get(mangled)}), flush=True)
 
 
 def main() -> int:
