@@ -305,8 +305,10 @@
    on rows whose probabilities are one-hot, query row 0 among them), two
    launches bitwise equal.  Times are CUDA-event medians; `bound_ms` is 5
    products of 2·H FLOP a visible pair over the type's peak against the
-   bytes of q, k, v, o, dO, lse, dQ, dK, dV; `library_ms` at the training
-   shapes is SDPA's backward through `autograd.grad`, a yardstick.
+   bytes of q, k, v, o, dO, lse, dQ, dK, dV; `library_ms` at every case
+   is SDPA's backward through `autograd.grad`, a yardstick.  Every bound
+   is `repro_torch.launch.roofline`'s, the counts the dry run charges a
+   kernel call.
 5. LM serving phase, full-width smollm-135m (30 layers, d_model 576, 9
    heads over 3 kv heads, bf16; random weights from a CUDA generator
    seeded 0), with the attention kernel's launch count set to 0 before and
@@ -344,9 +346,31 @@
    step 4 (`--fail-at 4`, a snapshot every 4 steps) and resumed: the
    resumed run's loss and final snapshot must equal the uninterrupted
    run's bit for bit; granite-moe-1b-a400m `--full-size`, seq 4096, batch
-   2, 4 steps.  Each step must launch K3's forward 2·L times (every layer
-   checkpointed) and its backward L times; the first backward call of
-   each model's first step is held against the plain backward.
+   2, 4 steps, its final parameters kept, then twice more as the mesh
+   holds' planted faults (uncounted): with `--lr 0` (an update never
+   applied) and at batch 1 (a gradient of other tokens).  Each step must
+   launch K3's forward 2·L times (every layer checkpointed) and its
+   backward L times; the first backward call of each model's first step
+   is held against the plain backward.
+5c. LM training over a device mesh (`lm_mesh` lines): the granite run of
+   step 5b again with `--mesh 2x2` (4 gloo ranks sharing the card, each
+   holding its blocks of `dist.sharding.lm_mesh_specs`, the same weights
+   and batches), started in a thread before step 3b's wait for the
+   ingress children (the card is idle then) and joined within it; held
+   after step 5b.  One `lm_mesh_step` line a rank and step (loss, ms, the
+   step's peak, launches); each rank's step must launch K3's forward 2·L,
+   its backward L and K1 `1 + 2·L` times; every K1 call of each rank's
+   first step is held on its own inputs; rank 0's loss at each step must
+   lie within MESH_LOSS_RTOL of the 1x1 run's, and the final parameters,
+   gathered from the ranks, within MESH_PARAM_LIMIT of the 1x1 run's
+   leaf by leaf (`mesh_state` line: ‖P_mesh − P_1x1‖ / ‖P_1x1 − P_0‖);
+   the frozen run's losses must fail the first limit and the batch-1
+   run's parameters the second.  Then `dryrun_hold`:
+   a child process that sees no card, started before step 4, dry-runs
+   smollm's training step at 1x1 (B=4) and granite's at 2x2 (B=2) on fake
+   tensors (`launch.cells.lm_train_setup`); each predicted peak a device
+   must lie within [0.67, 1.5] of the peak the card measured in this run,
+   and the predicted bound is printed beside the measured step time.
 6. Prints the `kernels` JSON line (the combine kernel's two routes, the
    compaction, `embedding_bag` and the attention kernel; the combine
    entries also carry their launches in step 3a's tuned runs and BC pass,
@@ -382,9 +406,12 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-# H100 SXM dense peaks by input type: bf16 tensor cores, float32 FMA
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+sys.path.insert(0, str(ROOT / "src"))
+# the kernels' bounds (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16, 67 f32),
+# the same counts the dry run charges a kernel call
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BYTES_PER_S, PEAK_FLOPS, attention_bound, attention_bwd_bound,
+    bound_ms, emb_bound_ms, route_bound_ms)
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/segment_combine.cu"
 REPLACES = {"dense": "src/repro/kernels/segment_combine.py:232",
             "tile": "src/repro/kernels/segment_combine.py:194"}
@@ -424,18 +451,6 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
-
-
-def bound_ms(e: int, d: int, v: int) -> float:
-    """Least time to move the kernel's bytes: `e` routed edges' messages,
-    the row pointer and the output, each once."""
-    return (e * d * 4 + (v + 1) * 4 + v * d * 4) / HBM_BYTES_PER_S * 1e3
-
-
-def route_bound_ms(lanes: int, e: int, d: int, v: int) -> float:
-    """Least time of the whole tile route: every lane's dst, the `e` routed
-    lanes' messages and the output, each once."""
-    return (lanes * 4 + e * d * 4 + v * d * 4) / HBM_BYTES_PER_S * 1e3
 
 
 # ------------------------------------------------------------ kernel phase
@@ -1216,14 +1231,6 @@ def device_ms(fn, reps):
     if not by:
         raise AssertionError("the profiler recorded no device time")
     return sum(by.values()) / reps, {k: v / reps for k, v in by.items()}
-
-
-def emb_bound_ms(n, distinct, d, num_bags, id_bytes=4, weighted=True):
-    """Least time of the forward: ids, bag ids and weights once, each
-    distinct table row once, the output once."""
-    moved = (n * (id_bytes + 4 + 4 * weighted) + distinct * d * 4
-             + num_bags * d * 4)
-    return moved / HBM_BYTES_PER_S * 1e3
 
 
 def hold_embedding_bag(name, table, ids, bags, num_bags, w, cot):
@@ -3940,23 +3947,6 @@ def check_rank_models(models, stacked):
 
 
 # ------------------------------------------------------- attention phase
-def attention_bound(b, sq, sk, kv, g, h, causal, dtype):
-    """(bound_ms, bound_by): the FLOPs of the visible (query, key) pairs,
-    4·H each, over the input type's peak, against the bytes of q, k, v and
-    o, each once, over 3.35 TB/s."""
-    if causal:    # query i sees keys 0..i
-        pairs = sum(min(i + 1, sk) for i in range(sq))
-    else:
-        pairs = sq * sk
-    flops = 4.0 * h * pairs * b * kv * g
-    size = torch.finfo(dtype).bits // 8
-    nbytes = (2 * b * sq * kv * g * h + 2 * b * sk * kv * h) * size
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
 def attention_error_ratio(got, want) -> float:
     """Worst |got - want| over its limit (step 4 of the docstring); above
     1 fails."""
@@ -4105,24 +4095,6 @@ ATTN_BWD_CASES = (  # the training shapes first
           for c in _BWD_SMALL)
 
 
-def attention_bwd_bound(b, sq, sk, kv, g, h, causal, dtype):
-    """(bound_ms, bound_by) of the backward: 5 products of 2·H FLOP a
-    visible (query, key) pair over the input type's peak, against the
-    bytes of q, k, v, o, dO, lse in and dQ, dK, dV out, each once."""
-    if causal:
-        pairs = sum(min(i + 1, sk) for i in range(sq))
-    else:
-        pairs = sq * sk
-    flops = 10.0 * h * pairs * b * kv * g
-    size = torch.finfo(dtype).bits // 8
-    nbytes = ((4 * b * sq * kv * g * h + 4 * b * sk * kv * h) * size
-              + 4 * b * kv * g * sq)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
 def bwd_error_ratio(got, want, terms=None) -> float:
     """Worst |got - want| over its limit; above 1 fails.  The relative
     part: 1e-4 of |want| in float32 (the sums run in another order), one
@@ -4253,10 +4225,10 @@ def hold_attention_backward(name, q, k, v, o, lse, dout, causal,
 def attention_backward_phase(reps, cases=ATTN_BWD_CASES, profile=False):
     """The backward kernel against its plain version at every case of
     `cases` (the forward kernel's `lse` against the plain one first);
-    returns the case records.  Times are CUDA-event medians; at the LM
-    training shapes `library_ms` is SDPA's backward through
-    `autograd.grad`, and with `profile` the profiler's device times of
-    the kernel and of that call are added (a fresh process: late in the
+    returns the case records.  Times are CUDA-event medians;
+    `library_ms` is SDPA's backward through `autograd.grad` at every case,
+    and with `profile` the profiler's device times of the kernel and of
+    that call are added at the LM training shapes (a fresh process: late in the
     smoke run the profiler has recorded no device time)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -4295,28 +4267,27 @@ def attention_backward_phase(reps, cases=ATTN_BWD_CASES, profile=False):
             b, sq, sk, kv, g, h, causal, dt)
         rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, o, lse, dout, causal), max(1, reps // 5))
-        rec["library_ms"] = None
-        if name.endswith("_train"):
-            # the yardstick: SDPA's backward in its own layout
-            lq = q.reshape(b, sq, kv * g, h).transpose(1, 2).contiguous()
-            lk = k.transpose(1, 2).contiguous()
-            lv = v.transpose(1, 2).contiguous()
-            lq, lk, lv = (t.requires_grad_(True) for t in (lq, lk, lv))
-            lo = F.scaled_dot_product_attention(lq, lk, lv,
-                                                is_causal=causal,
-                                                enable_gqa=True)
-            ldo = dout.reshape(b, sq, kv * g, h).transpose(1, 2).contiguous()
+        # the yardstick at every case: SDPA's backward in its own layout
+        # (its causal mask is top-left aligned, as K3's: query i sees keys
+        # 0..i when Sq != Sk)
+        lq = q.reshape(b, sq, kv * g, h).transpose(1, 2).contiguous()
+        lk = k.transpose(1, 2).contiguous()
+        lv = v.transpose(1, 2).contiguous()
+        lq, lk, lv = (t.requires_grad_(True) for t in (lq, lk, lv))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                            enable_gqa=True)
+        ldo = dout.reshape(b, sq, kv * g, h).transpose(1, 2).contiguous()
 
-            def library():
-                return torch.autograd.grad(lo, (lq, lk, lv), ldo,
-                                           retain_graph=True)
+        def library():
+            return torch.autograd.grad(lo, (lq, lk, lv), ldo,
+                                       retain_graph=True)
 
-            rec["library_ms"] = cuda_ms(library, reps)
-            if profile:
-                rec["device_ms"], rec["device_by_kernel"] = device_ms(
-                    kernel, reps)
-                rec["library_device_ms"], _ = device_ms(library, reps)
-            del lq, lk, lv, lo, ldo
+        rec["library_ms"] = cuda_ms(library, reps)
+        if profile and name.endswith("_train"):
+            rec["device_ms"], rec["device_by_kernel"] = device_ms(
+                kernel, reps)
+            rec["library_device_ms"], _ = device_ms(library, reps)
+        del lq, lk, lv, lo, ldo
         log("attention_backward_case", json.dumps(rec))
         records.append(rec)
         del q, k, v, o, lse, dout
@@ -4657,6 +4628,17 @@ def moe_serving_phase():
 
 # ------------------------------------------------------ LM training phase
 TRAIN_SEQ = 4096          # LM_SHAPES train_4k
+GRANITE_ARGV = ["--arch", "granite-moe-1b-a400m", "--full-size", "--seq",
+                str(TRAIN_SEQ), "--batch", "2", "--steps", "4", "--seed", "0"]
+# the mesh run's final parameters (`launch.train.main`'s `final_params`),
+# under the phase's work directory
+MESH_FINAL = "granite_mesh_final.pt"
+
+
+def half_batch(argv):
+    """`argv` with its `--batch` halved."""
+    i = argv.index("--batch") + 1
+    return argv[:i] + [str(int(argv[i]) // 2)] + argv[i + 1:]
 
 
 @contextlib.contextmanager
@@ -4688,14 +4670,34 @@ def k1_per_step(cfg) -> int:
     return 1 + (2 * cfg.n_layers if cfg.moe is not None else 0)
 
 
-def train_run(arch, argv, hold=None):
+@contextlib.contextmanager
+def recorded_params(store):
+    """The parameters that `launch.train.main` draws in the block (its
+    `transformer.init_lm` result, which the run updates in place), kept in
+    `store["params"]`."""
+    from repro_torch.models import transformer as tfm
+    original = tfm.init_lm
+
+    def init(*args, **kwargs):
+        store["params"] = original(*args, **kwargs)
+        return store["params"]
+
+    tfm.init_lm = init
+    try:
+        yield store
+    finally:
+        tfm.init_lm = original
+
+
+def train_run(arch, argv, hold=None, keep=None):
     """`launch.train.main` on `argv`; returns its record: each step's
     loss and wall seconds, its K3 forward and backward launches (held at
     2·L and L a step: every layer checkpointed) and its K1 launches (held
     at `k1_per_step`), the peak memory and the final loss (None when the
     run exits).  With `hold`, every K1 call of the first step is held on
     its own inputs (`held_combines`; the first step is untimed, and the
-    holds' launches are not counted)."""
+    holds' launches are not counted).  `keep`, a dict, gets the final
+    parameters (name → tensor on the card)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import segment_combine as sc
@@ -4723,12 +4725,17 @@ def train_run(arch, argv, hold=None):
     sc.reset_launches()
     code, final = 0, None
     t0 = time.perf_counter()
+    drawn = {}
     with held_combines(hold or "", active=lambda: hold and not steps,
-                       uncounted=True) as held:
+                       uncounted=True) as held, recorded_params(drawn):
         try:
             final = train.main(argv, on_step=on_step)
         except SystemExit as exc:
             code = exc.code
+    if keep is not None:
+        keep.update((n, p.detach()) for n, p in
+                    drawn["params"].named_parameters())
+    del drawn
     rec = {"arch": arch, "argv": argv, "exit": code, "steps": steps,
            "final_loss": final, "wall_s": time.perf_counter() - t0,
            "k1_launches": sc.LAUNCHES["dense"], "held": held,
@@ -4795,19 +4802,320 @@ def lm_training_phase(work: Path):
     shutil.rmtree(full_dir)
     shutil.rmtree(crash_dir)
     held = {}
+    states = {"one": {}, "init": {}, "half": {}}
     with recorded_backward(held):
-        recs["granite"] = train_run("granite-moe-1b-a400m", [
-            "--arch", "granite-moe-1b-a400m", "--full-size", "--seq",
-            str(TRAIN_SEQ), "--batch", "2", "--steps", "4", "--seed", "0"],
-            hold="granite train step 0")
+        recs["granite"] = train_run("granite-moe-1b-a400m", GRANITE_ARGV,
+                                    hold="granite train step 0",
+                                    keep=states["one"])
     fwd += sum(st["k3_fwd"] for st in recs["granite"]["steps"])
     bwd += sum(st["k3_bwd"] for st in recs["granite"]["steps"])
     recs["granite"]["backward_hold"] = hold_attention_backward(
         "granite_training_layer", *held["args"])
     del held
+    # the mesh holds' planted faults, run (uncounted): an update that is
+    # never applied (whose parameters stay the initial ones), and a
+    # gradient of other tokens (half the batch)
+    recs["granite_frozen"] = train_run("granite-moe-1b-a400m",
+                                       GRANITE_ARGV + ["--lr", "0"],
+                                       keep=states["init"])
+    recs["granite_half"] = train_run("granite-moe-1b-a400m",
+                                     half_batch(GRANITE_ARGV),
+                                     keep=states["half"])
+    recs["granite_states"] = states
     torch.cuda.empty_cache()
     k1 = recs["smollm"]["k1_launches"] + recs["granite"]["k1_launches"]
     return recs, fwd, bwd, k1
+
+
+# ---------------------------------------------------- LM mesh phase
+MESH = "2x2"                # ("data", "model"): 4 gloo ranks on the card
+# The mesh run against the 1x1 run.  Both train the same bf16 model on
+# the same batches; the mesh sums its tp partials (attention's and the
+# experts' outputs, the vocab blocks) and its dp gradient shares in
+# another order, so its bf16 roundings differ, and AdamW's first steps
+# (near sign(g)) turn a small gradient's rounding into a whole update of
+# the other sign.  Two holds, each with a planted fault run in
+# `lm_training_phase` that must fail it:
+#  * the loss at each step, relative to the 1x1 run's: on an H100 the
+#    sound run reads 4.0e-5 at most, the same bits in every run; an
+#    update never applied (`--lr 0`) reads 9.2e-4 and must read more than
+#    the limit.
+#  * the final parameters leaf by leaf, ‖P_mesh − P_1x1‖ / ‖P_1x1 − P_0‖
+#    (the distance over the 1x1 run's own update; `update_readings`):
+#    the sound run reads 0.44 at most (a router; the median leaf 0.14); a
+#    frozen update reads exactly 1 on every moved leaf, and a gradient of
+#    other tokens (the 1x1 run at half the batch, as a lost dp sum gives
+#    each dp rank) reads 1.37 on the median leaf, and its largest leaf
+#    must read more than the limit.  A mesh run that skips `reduce_grads`
+#    fails it too (checked at a reduced bf16 config on the CPU).
+MESH_LOSS_RTOL = 2.0e-4
+MESH_PARAM_LIMIT = 0.7
+# the dry run's peak a device against the card's: the accounting is
+# wrong outside this band
+PEAK_BAND = (0.67, 1.5)
+DRYRUN_CELLS = (("smollm", "smollm-135m", 4, (1, 1)),
+                ("granite", "granite-moe-1b-a400m", 2, (2, 2)))
+
+
+@contextlib.contextmanager
+def mesh_rank_holds(rank, current_step):
+    """On a rank of the mesh run: every K1 call of its first step held on
+    its own inputs (`held_combines`, uncounted); yields a dict that gets
+    the held calls and the rank's held errors."""
+    first = current_step()
+    out = {}
+    with held_combines(f"lm_mesh rank {rank} step {first}",
+                       active=lambda: current_step() == first,
+                       uncounted=True) as seen:
+        yield out
+    out.update(held=dict(seen), errs=dict(HELD_ERRS),
+               mag=dict(HELD_MAG_ERRS), widths=sorted(HELD_WIDTHS))
+
+
+def start_lm_mesh(work: Path):
+    """Start granite-moe-1b-a400m at full width and depth through
+    `launch.train.main` with `--mesh 2x2` (`lm_training`'s granite argv
+    and weights; 4 gloo ranks sharing the card) from a thread of this
+    process, so that it runs while the card waits for the ingress
+    children; its final parameters go to `work / MESH_FINAL`.  Returns
+    (the thread, the box its record lands in)."""
+    import threading
+    from repro_torch.launch import train
+    box = {}
+
+    def run():
+        ranks = []
+        t0 = time.perf_counter()
+        try:
+            train.main(GRANITE_ARGV + ["--mesh", MESH], ranks_out=ranks,
+                       rank_context=mesh_rank_holds,
+                       final_params=work / MESH_FINAL)
+        except BaseException as exc:      # raised by lm_mesh_phase
+            box["error"] = exc
+        box.update(ranks=ranks, wall_s=time.perf_counter() - t0)
+
+    thread = threading.Thread(target=run, name="lm_mesh", daemon=True)
+    thread.start()
+    return thread, box
+
+
+def update_readings(final, ref, init):
+    """Each parameter's distance from the 1x1 run's final value over the
+    1x1 run's own update, ‖P − P_ref‖ / ‖P_ref − P_0‖ (float32 norms on the
+    card; `final`, `ref`, `init`: name → tensor): 0 for an equal leaf, inf
+    for one that the 1x1 run left unchanged and this run moved."""
+    out = {}
+    for name, r in ref.items():
+        r = r.cuda().float()
+        num = float(torch.linalg.vector_norm(final[name].cuda().float() - r))
+        den = float(torch.linalg.vector_norm(r - init[name].float()))
+        out[name] = 0.0 if num == 0 else num / den if den > 0 else math.inf
+    return out
+
+
+def mesh_state_hold(states, work: Path, errs, frozen_errs):
+    """The mesh run's final parameters against the 1x1 run's
+    (`update_readings`, held at MESH_PARAM_LIMIT) and the planted faults
+    against both limits (`states`: the final parameters of the 1x1 run,
+    the frozen run (the initial ones) and the half-batch run); returns the
+    record (its `mesh_state` line)."""
+    one, init, half = states["one"], states["init"], states["half"]
+    mesh = torch.load(work / MESH_FINAL, map_location="cpu", mmap=True,
+                      weights_only=True)
+    if sorted(mesh) != sorted(one) or any(
+            mesh[n].shape != one[n].shape for n in one):
+        raise AssertionError("lm_mesh: the gathered parameters are not "
+                             "the 1x1 run's names and shapes")
+    moved = math.sqrt(sum(float(torch.linalg.vector_norm(
+        one[n].cuda().float() - init[n].float())) ** 2 for n in one))
+    size = math.sqrt(sum(float(torch.linalg.vector_norm(
+        init[n].float())) ** 2 for n in one))
+    if not 0 < moved < 0.5 * size:     # the 1x1 run moved, by a step
+        raise AssertionError(f"lm_mesh: the 1x1 update's norm {moved} "
+                             f"against the weights' {size}")
+    sound = update_readings(mesh, one, init)
+    faulty = update_readings(half, one, init)
+    del one, mesh, half, init
+    states.clear()
+    (work / MESH_FINAL).unlink()
+    torch.cuda.empty_cache()
+    worst = max(sound, key=sound.get)
+    least = max(faulty, key=faulty.get)
+    rec = {"leaves": len(sound), "update_rel_norm": moved / size,
+           "max_reading": sound[worst], "max_leaf": worst,
+           "median_reading": float(np.median(list(sound.values()))),
+           "top": sorted(sound.items(), key=lambda kv: -kv[1])[:5],
+           "limit": MESH_PARAM_LIMIT,
+           "half_batch_max_reading": faulty[least],
+           "half_batch_max_leaf": least,
+           "half_batch_median_reading": float(np.median(
+               list(faulty.values()))),
+           "frozen_reading": 1.0,
+           "loss_max_rel_err": max(errs), "loss_rtol": MESH_LOSS_RTOL,
+           "frozen_loss_max_rel_err": max(frozen_errs)}
+    log("mesh_state", json.dumps(rec))
+    if not sound[worst] <= MESH_PARAM_LIMIT:
+        raise AssertionError(f"lm_mesh: {worst} reads {sound[worst]} of "
+                             f"the 1x1 update, limit {MESH_PARAM_LIMIT}")
+    if not faulty[least] > MESH_PARAM_LIMIT:
+        raise AssertionError(f"lm_mesh: the half-batch run reads at most "
+                             f"{faulty[least]}: the parameter hold at "
+                             f"{MESH_PARAM_LIMIT} cannot tell it")
+    if not max(frozen_errs) > MESH_LOSS_RTOL:
+        raise AssertionError(f"lm_mesh: the frozen run's losses read at "
+                             f"most {max(frozen_errs)}: the loss hold at "
+                             f"{MESH_LOSS_RTOL} cannot tell it")
+    return rec
+
+
+def lm_mesh_phase(recs, started, work: Path):
+    """The mesh run `start_lm_mesh` started, held: one `lm_mesh_step` line
+    a rank and step (loss, ms, peak, launches); each step's launches held
+    at K3 forward 2·L, K3 backward L and K1 `k1_per_step` a rank, every K1
+    call of each rank's first step held on its own inputs, rank 0's loss
+    at each step within MESH_LOSS_RTOL of the 1x1 granite run's and the
+    final parameters within MESH_PARAM_LIMIT (`mesh_state_hold`; `recs`:
+    `lm_training_phase`'s records).  Returns (its record, K3 forward, K3
+    backward and K1 launches summed over the ranks and steps)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-moe-1b-a400m")[0]
+    granite = recs["granite"]
+    argv = GRANITE_ARGV + ["--mesh", MESH]
+    if list(granite["argv"]) != GRANITE_ARGV:
+        raise AssertionError(f"the 1x1 reference ran {granite['argv']}")
+    thread, box = started
+    thread.join()
+    if "error" in box:
+        raise box["error"]
+    ranks, wall = box["ranks"], box["wall_s"]
+    want = {"k3_fwd": 2 * cfg.n_layers, "k3_bwd": cfg.n_layers,
+            "k1": k1_per_step(cfg)}
+    totals = dict.fromkeys(want, 0)
+    for r in ranks:
+        for st in r["steps"]:
+            got = {k: st[k] for k in want}
+            log("lm_mesh_step", json.dumps({
+                "rank": r["rank"], "coords": r["coords"], "step": st["step"],
+                "loss": st["loss"], "ms": st["s"] * 1e3,
+                "peak_bytes": st["peak"], **got}))
+            if got != want:
+                raise AssertionError(f"lm_mesh rank {r['rank']} step "
+                                     f"{st['step']}: launches {got}, want "
+                                     f"{want}")
+            for k in want:
+                totals[k] += got[k]
+        ctx = r["context"]
+        if sum(ctx["held"].values()) != want["k1"]:
+            raise AssertionError(f"lm_mesh rank {r['rank']}: {ctx['held']} "
+                                 f"K1 calls held in its first step, want "
+                                 f"{want['k1']}")
+        for route in HELD_ERRS:
+            HELD_ERRS[route] = max(HELD_ERRS[route], ctx["errs"][route])
+            HELD_MAG_ERRS[route] = max(HELD_MAG_ERRS[route],
+                                       ctx["mag"][route])
+        HELD_WIDTHS.update(tuple(w) for w in ctx["widths"])
+    ref = {st["step"]: st["loss"] for st in granite["steps"]}
+    errs = [abs(st["loss"] - ref[st["step"]]) / abs(ref[st["step"]])
+            for st in ranks[0]["steps"]]
+    frozen_errs = [abs(st["loss"] - ref[st["step"]]) / abs(ref[st["step"]])
+                   for st in recs["granite_frozen"]["steps"]]
+    peaks = [st["peak"] for r in ranks for st in r["steps"][1:]]
+    rec = {"argv": argv, "ranks": len(ranks), "wall_s": wall,
+           "losses": [st["loss"] for st in ranks[0]["steps"]],
+           "losses_1x1": [ref[st["step"]] for st in ranks[0]["steps"]],
+           "loss_rel_err": errs, "loss_rtol": MESH_LOSS_RTOL,
+           "ms_per_step": 1e3 * float(np.mean(
+               [st["s"] for st in ranks[0]["steps"][1:]])),
+           "peak_bytes": max(peaks), "launches_per_rank_step": want,
+           "held_per_rank": [sum(r["context"]["held"].values())
+                             for r in ranks]}
+    log("lm_mesh", json.dumps(rec))
+    if len(ranks[0]["steps"]) != len(granite["steps"]):
+        raise AssertionError(f"lm_mesh ran {len(ranks[0]['steps'])} steps")
+    rec["state"] = mesh_state_hold(recs.pop("granite_states"), work, errs,
+                                   frozen_errs)
+    if not max(errs) <= MESH_LOSS_RTOL:
+        raise AssertionError(f"lm_mesh: losses {rec['losses']} against the "
+                             f"1x1 run's {rec['losses_1x1']}")
+    return rec, totals["k3_fwd"], totals["k3_bwd"], totals["k1"]
+
+
+def dryrun_child(conn) -> None:
+    """The dry run of `DRYRUN_CELLS` (the training steps of `lm_training`'s
+    smollm run at 1x1 and of the mesh phase's granite run at 2x2, each on
+    a fake mesh of that shape), in a child process that sees no card
+    (fake tensors on the meta device); sends back each cell's record."""
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.launch import cells, dryrun
+        out = {}
+        for name, arch, batch, shape in DRYRUN_CELLS:
+            cfg = get_config(arch)[0]
+            with dryrun.fake_world(shape, ("data", "model")) as mesh:
+                run_s, lower_s, counter, args = dryrun.run_fake(
+                    cells.lm_train_setup(cfg, batch, TRAIN_SEQ, mesh))
+                out[name] = dryrun.record(arch, f"train_b{batch}",
+                                          "train", mesh, {}, counter, args,
+                                          lower_s, run_s)
+        conn.send(("ok", out))
+    except BaseException as exc:
+        conn.send(("error", repr(exc)))
+    finally:
+        conn.close()
+
+
+def start_dryrun_child():
+    """Start `dryrun_child` with the card hidden from it (it is host work
+    beside the card's phases)."""
+    import multiprocessing
+    import os
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe(duplex=False)
+    old = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        proc = ctx.Process(target=dryrun_child, args=(child,), daemon=True)
+        proc.start()
+    finally:
+        if old is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = old
+    child.close()
+    return proc, parent
+
+
+def dryrun_hold(child, measured):
+    """The dry run's predicted peak a device against the peak the card
+    measured in this run (`measured[name]`: bytes, ms a step), held within
+    PEAK_BAND; its bound beside the measured step time (printed only)."""
+    proc, conn = child
+    status, out = conn.recv()
+    proc.join(timeout=60)
+    if status != "ok":
+        raise AssertionError(f"the dry run failed: {out}")
+    recs = {}
+    for name, (peak, ms) in measured.items():
+        r = out[name]
+        rl = r["roofline"]
+        rec = {"cell": name, "mesh": r["mesh"],
+               "predicted_peak_bytes": r["memory"]["peak_bytes"],
+               "measured_peak_bytes": peak,
+               "peak_ratio": r["memory"]["peak_bytes"] / peak,
+               "predicted_bound_ms": rl["bound_time_s"] * 1e3,
+               "dominant": rl["dominant"], "measured_ms_per_step": ms,
+               "compute_ms": rl["compute_time_s"] * 1e3,
+               "memory_ms": rl["memory_time_s"] * 1e3,
+               "collective_ms": rl["collective_time_s"] * 1e3,
+               "kernel_calls": rl["kernel_calls"],
+               "dryrun_s": r["lower_s"] + r["compile_s"]}
+        log("dryrun_hold", json.dumps(rec))
+        if not PEAK_BAND[0] <= rec["peak_ratio"] <= PEAK_BAND[1]:
+            raise AssertionError(f"dry run {name}: predicted peak "
+                                 f"{rec['predicted_peak_bytes']} against "
+                                 f"{peak} measured")
+        recs[name] = rec
+    return recs
 
 
 # ------------------------------------------------ graph checkpoint phase
@@ -4872,7 +5180,6 @@ def main() -> int:
         return 1
     if args.scale > 24:
         raise SystemExit("--scale must be <= 24")
-    sys.path.insert(0, str(ROOT / "src"))
     # the distributed phase's host ingress runs beside the phases before it
     ingress = start_dist_ingress(args.scale, DIST_K)
     try:
@@ -4996,8 +5303,12 @@ def run_phases(args, ingress, cache_dir) -> int:
     del part, upart
     torch.cuda.empty_cache()
     single_steps = {r["program"]: r["supersteps"] for r in runs}
+    # the mesh run's 4 ranks use the idle card (and free cores) while the
+    # ingress children finish; it is held after the 1x1 run (lm_mesh)
+    mesh_run = start_lm_mesh(cache_dir)
     with phase("dist_ingress_wait"):
         inputs = dist_inputs(ingress)
+        mesh_run[0].join()
     with phase("dist"):
         _, _, finals = dist_phase(inputs, ref, source, single_steps)
     with phase("dist_tuned"):
@@ -5035,6 +5346,7 @@ def run_phases(args, ingress, cache_dir) -> int:
     del graph, ugraph, ref, ags, finals, gcn_stacked, gcn_ref
     torch.cuda.empty_cache()
 
+    dry = start_dryrun_child()      # host work beside the phases below
     with phase("attention"):
         attn = attention_kernel_phase(args.reps)
     with phase("attention_backward"):
@@ -5044,7 +5356,16 @@ def run_phases(args, ingress, cache_dir) -> int:
     with phase("moe_serving"):
         _, moe_k3, moe_k1 = moe_serving_phase()
     with phase("lm_training"):
-        _, train_fwd, train_bwd, train_k1 = lm_training_phase(cache_dir)
+        train_recs, train_fwd, train_bwd, train_k1 = lm_training_phase(
+            cache_dir)
+    with phase("lm_mesh"):
+        mesh_rec, mesh_fwd, mesh_bwd, mesh_k1 = lm_mesh_phase(
+            train_recs, mesh_run, cache_dir)
+    with phase("dryrun_hold"):
+        dryrun_hold(dry, {
+            "smollm": (train_recs["smollm"]["max_memory_allocated"],
+                       train_recs["smollm"]["ms_per_step"]),
+            "granite": (mesh_rec["peak_bytes"], mesh_rec["ms_per_step"])})
     log("phase_s", json.dumps(PHASE_S))
 
     kernels = []
@@ -5057,6 +5378,7 @@ def run_phases(args, ingress, cache_dir) -> int:
              "autoint": {"dense": autoint_launches, "tile": 0, "compact": 0},
              "moe_serving": {"dense": moe_k1, "tile": 0, "compact": 0},
              "lm_training": {"dense": train_k1, "tile": 0, "compact": 0},
+             "lm_mesh": {"dense": mesh_k1, "tile": 0, "compact": 0},
              "dimenet_sharded": {
                  "dense": dimenet_stacked[2]["launches_forward"]
                  + dimenet_stacked[2]["launches_backward"],
@@ -5087,7 +5409,8 @@ def run_phases(args, ingress, cache_dir) -> int:
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES, "launches": attn_launches,
         "path_launches": {"lm_serving": attn_launches,
-                          "moe_serving": moe_k3, "lm_training": train_fwd},
+                          "moe_serving": moe_k3, "lm_training": train_fwd,
+                          "lm_mesh": mesh_fwd},
         "max_abs_err": max(r["max_abs_err"] for r in attn),
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -5097,6 +5420,7 @@ def run_phases(args, ingress, cache_dir) -> int:
         "name": "flash_attention_backward", "route": "cuda",
         "source": ATTN_BWD_SOURCE, "replaces": ATTN_BWD_REPLACES,
         "launches": train_bwd,
+        "path_launches": {"lm_training": train_bwd, "lm_mesh": mesh_bwd},
         "max_abs_err": max(r["max_abs_err"] for r in attn_bwd),
         "ms": rec["kernel_ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

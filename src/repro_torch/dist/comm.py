@@ -27,6 +27,21 @@ padding and activity flags included), the traffic a run's exchanges put
 on the wire: the ranks' counts add up to the stacked count of the same
 run.  The halt test (`any`) and the gather of results (`all_gather`) are
 not exchange traffic and are not counted.
+
+A `ProcessGroupComm` may span a sub-group of the world (`group=`, e.g. a
+device mesh's `mesh.get_group("model")`): its `k`, `rank` and shards are
+then the group's.  Its `psum` carries a gradient, whose transpose is the
+psum of the cotangents (each rank's share of a loss summed over the
+group, as `StackedComm`'s fold carries it).
+
+The mesh collectives below (`group_all_gather`, `group_reduce_scatter`,
+`group_all_reduce`, `group_max`) are what the sharded LM step
+(`repro_torch.models.transformer` under a `DistCtx`) runs over a mesh
+axis's group: autograd Functions whose backward is the true transpose
+(an all-gather's is a reduce-scatter, an all-reduce's an all-reduce), and
+every sum folds the group's ranks in rank order, so a step is
+reproducible run to run.  All of them go through `_collective`, the one
+place that talks to the backend.
 """
 from __future__ import annotations
 
@@ -87,11 +102,53 @@ def _unwire(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.view(torch.bool) if dtype == torch.bool else x
 
 
-def _all_to_all_single(x: torch.Tensor) -> torch.Tensor:
+def _collective(op: str, x: torch.Tensor, group=None) -> torch.Tensor:
+    """Run one collective of `group` (None: the default group) on `x`, a
+    tensor on this rank's device: "all_gather" -> `[k, *x.shape]`, row i
+    rank i's `x`; "all_to_all" -> `[k, ...]` row i what rank i sent in its
+    row of ours (x is `[k, ...]`); "max" -> the elementwise maximum over
+    the ranks.  Bool travels as uint8.  Gloo takes CUDA tensors for these
+    three and stages them through host memory itself."""
     send = _wire(x)
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send)
-    return _unwire(recv, x.dtype)
+    if op == "all_gather":
+        k = dist.get_world_size(group)
+        rows = [torch.empty_like(send) for _ in range(k)]
+        dist.all_gather(rows, send, group=group)
+        out = torch.stack(rows)
+    elif op == "all_to_all":
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send, group=group)
+    elif op == "max":
+        out = send.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    else:
+        raise ValueError(f"unknown collective {op!r}")
+    return _unwire(out, x.dtype)
+
+
+def _fold(rows: torch.Tensor) -> torch.Tensor:
+    """`[k, ...]` summed over its rows in row (rank) order."""
+    return functools.reduce(torch.add, rows.unbind(0))
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    return _fold(_collective("all_gather", x, group))
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Rank r's block of `x` along `dim` (k equal blocks), summed over the
+    ranks in rank order: one all-to-all of the blocks and a fold."""
+    k = dist.get_world_size(group)
+    if x.shape[dim] % k:
+        raise ValueError(f"reduce-scatter of {x.shape[dim]} rows over "
+                         f"{k} ranks")
+    blocks = torch.stack(x.chunk(k, dim))
+    return _fold(_collective("all_to_all", blocks.contiguous(), group))
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return torch.cat(_collective("all_gather", x.contiguous(),
+                                 group).unbind(0), dim)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -99,23 +156,88 @@ class _AllToAll(torch.autograd.Function):
     gradient (the exchange is its own transpose)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _all_to_all_single(x)
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _collective("all_to_all", x.contiguous(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_to_all_single(grad)
+        return _collective("all_to_all", grad.contiguous(), ctx.group), None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over the group's ranks in rank order; backward the same sum
+    of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum(grad.contiguous(), ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' blocks concatenated along `dim` in rank order; backward
+    the reduce-scatter of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Rank r's block along `dim` of the sum over the ranks; backward the
+    all-gather of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather(grad, ctx.dim, ctx.group), None, None
+
+
+def group_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over `group`'s ranks of `x` (rank order), on every rank."""
+    return _AllReduce.apply(x, group)
+
+
+def group_all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' `x` concatenated along `dim`, rank order."""
+    return _AllGather.apply(x, dim, group)
+
+
+def group_reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block (of k) along `dim` of Σ over the ranks of `x`."""
+    return _ReduceScatter.apply(x, dim, group)
+
+
+def group_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over `group`'s ranks (no gradient)."""
+    return _collective("max", x.detach(), group)
 
 
 class ProcessGroupComm:
-    """One shard a process over the default `torch.distributed` group.
+    """One shard a process over a `torch.distributed` group (`group`; the
+    default group when None).
 
     Operands are `[1, ...]` (the held shard's row), as `StackedComm` takes
     `[k, ...]`.  `all_to_all` is `all_to_all_single` on the contiguous
     `[k, ...]` send buffer, an autograd Function whose backward is the
     all-to-all of the gradient; `psum` all-gathers the rows and folds them
     in rank order, so it equals `StackedComm.psum` bitwise (an all-reduce
-    sum promises no order); `pmin`/`pmax` are all-reduces; `any` is an
+    sum promises no order), and its backward is the same sum of the
+    cotangents; `pmin`/`pmax` are all-reduces; `any` is an
     all-reduce max of one int on the device and one host read.  Bool
     operands travel as uint8.
 
@@ -126,13 +248,14 @@ class ProcessGroupComm:
     moved to another device.
     """
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, group=None):
         if not dist.is_initialized():
             raise RuntimeError("ProcessGroupComm needs an initialised "
                                "process group (repro_torch.dist.world)")
         self.device = device      # the rank's device, for its callers
-        self.k = dist.get_world_size()
-        self.rank = dist.get_rank()
+        self.group = group
+        self.k = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
         self.shards = range(self.rank, self.rank + 1)
         self.values = 0
 
@@ -149,28 +272,24 @@ class ProcessGroupComm:
             raise ValueError(f"all_to_all: {x.shape[1]} destinations, "
                              f"world of {self.k}")
         self.values += x.numel()
-        return _AllToAll.apply(x[0]).unsqueeze(0)
+        return _AllToAll.apply(x[0], self.group).unsqueeze(0)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """`[1, ...]` on every rank -> `[k, ...]`, rank i's row at i."""
         self._check(x)
-        send = _wire(x[0])
-        rows = [torch.empty_like(send) for _ in range(self.k)]
-        dist.all_gather(rows, send)
-        return _unwire(torch.stack(rows), x.dtype)
+        return _collective("all_gather", x[0], self.group)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's row, folded in rank order."""
         self._check(x)
         self.values += x.numel()
-        rows = self.all_gather(x).unbind(0)
-        return functools.reduce(torch.add, rows).unsqueeze(0)
+        return _AllReduce.apply(x[0], self.group).unsqueeze(0)
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         self._check(x)
         self.values += x.numel()
         out = _wire(x).clone()
-        dist.all_reduce(out, op=op)
+        dist.all_reduce(out, op=op, group=self.group)
         return _unwire(out, x.dtype)
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
@@ -182,5 +301,5 @@ class ProcessGroupComm:
     def any(self, flag: torch.Tensor) -> bool:
         """The halt test over every rank: one all-reduce, one host read."""
         t = flag.any().reshape(1).to(torch.int32)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return bool(t.item())

@@ -34,6 +34,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.segment_combine import (rows_at,
@@ -189,10 +190,18 @@ def embedding_bag_forward_cuda(table: torch.Tensor, ids: torch.Tensor,
     ascending, `weights [n]` float32 or None; all contiguous on one card.
     Returns `[num_bags, d]` float32.  Raises on anything else, before any
     build or launch."""
+    d = table.shape[1]
+    if isinstance(table, FakeTensor):   # the dry run: its bound's bytes
+        from repro_torch.launch import roofline
+        n = ids.shape[0]
+        roofline.charge_kernel("embedding_bag", 0.0, roofline.emb_bytes(
+            n, min(n, table.shape[0]), d, num_bags, ids.element_size(),
+            weights is not None))
+        return torch.empty((num_bags, d), dtype=torch.float32,
+                           device=table.device)
     problem = _problem(table, ids, bag_ids, num_bags, weights)
     if problem:
         raise ValueError(f"embedding_bag_forward_cuda: {problem}")
-    d = table.shape[1]
     if num_bags == 0 or d == 0:
         return torch.zeros((num_bags, d), dtype=torch.float32,
                            device=table.device)
@@ -224,7 +233,8 @@ def embedding_bag_backward_cuda(grad: torch.Tensor, table: torch.Tensor,
     walks the stable ids-sorted order (`torch.sort`, run here only when it
     is asked for).  Raises on bad input before any build or launch."""
     problem = ("need_weights without weights"
-               if need_weights and weights is None else
+               if need_weights and weights is None else None
+               if isinstance(table, FakeTensor) else
                _problem(table, ids, bag_ids, num_bags, weights, grad))
     if problem:
         raise ValueError(f"embedding_bag_backward_cuda: {problem}")
@@ -235,6 +245,12 @@ def embedding_bag_backward_cuda(grad: torch.Tensor, table: torch.Tensor,
     g_w = (torch.empty(n, dtype=torch.float32, device=dev)
            if need_weights else None)
     if not (need_table or need_weights):
+        return g_table, g_w
+    if isinstance(table, FakeTensor):   # the dry run: the table gradient
+        from repro_torch.launch import roofline
+        roofline.charge_kernel("embedding_bag_bwd", 0.0, roofline.emb_bytes(
+            n, min(n, table.shape[0]), d, num_bags, ids.element_size(),
+            weights is not None) + (table.numel() * 4 if need_table else 0))
         return g_table, g_w
     if n == 0 or d == 0:
         return (None if g_table is None else g_table.zero_(),

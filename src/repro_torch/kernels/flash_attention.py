@@ -59,6 +59,7 @@ import ctypes
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 
@@ -208,8 +209,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16 runs on the tensor cores (`wgmma` fed by TMA), float32 on
     CUDA-core FMAs (no TF32).
 
-    Raises on anything else, before any build or launch.
+    Raises on anything else, before any build or launch.  On fake tensors
+    (the dry run) nothing launches: the outputs are made and the call is
+    charged the kernel's counts (`launch.roofline.attention_counts`).
     """
+    if isinstance(q, FakeTensor):
+        return _fake_forward(q, k, causal, return_lse)
     why = _refusal(q, k, v)
     if why is not None:
         raise ValueError(f"flash_attention_cuda: {why}")
@@ -224,6 +229,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global LAUNCHES
     LAUNCHES += 1
     return (out, lse) if return_lse else out
+
+
+def _fake_forward(q, k, causal, return_lse):
+    from repro_torch.launch import roofline
+    b, sq, kvh, g, h = q.shape
+    roofline.charge_kernel("flash_attention", *roofline.attention_counts(
+        b, sq, k.shape[1], kvh, g, h, causal, q.dtype), q.dtype)
+    out = torch.empty_like(q)
+    if not return_lse:
+        return out
+    return out, torch.empty((b, kvh, g, sq), dtype=torch.float32,
+                            device=q.device)
 
 
 def _bwd_refusal(q, k, v, o, lse, dout):
@@ -265,15 +282,24 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     `flash_attention_bwd_plain` rounds them), float32 on CUDA-core FMAs (no
     TF32); no atomics, so two calls give the same bits.
 
-    Raises on anything else, before any build or launch.
+    Raises on anything else, before any build or launch.  On fake tensors
+    the outputs and the δ scratch are made and the call is charged the
+    kernels' counts (`launch.roofline.attention_bwd_counts`).
     """
-    why = _bwd_refusal(q, k, v, o, lse, dout)
+    fake = isinstance(q, FakeTensor)
+    why = None if fake else _bwd_refusal(q, k, v, o, lse, dout)
     if why is not None:
         raise ValueError(f"flash_attention_bwd_cuda: {why}")
     b, sq, kvh, g, h = q.shape
     delta = torch.empty((b, kvh, g, sq), dtype=torch.float32,
                         device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if fake:
+        from repro_torch.launch import roofline
+        roofline.charge_kernel(
+            "flash_attention_bwd", *roofline.attention_bwd_counts(
+                b, sq, k.shape[1], kvh, g, h, causal, q.dtype), q.dtype)
+        return dq, dk, dv
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], kvh, g, h,

@@ -6,7 +6,9 @@ hand-written kernel (`segment_combine.segment_combine_cuda`,
 `flash_attention.flash_attention_cuda`, the `embedding_bag` kernels), a
 CPU tensor the plain PyTorch version.  There is no switch and no
 fallback; the JAX package's `use_pallas=True/False` has no counterpart
-here.  Combine payloads may be
+here.  A fake tensor (the dry run, `launch/dryrun.py`; on any device)
+takes the kernel's wrapper too, whose shape route makes its outputs and
+charges the kernel's counts.  Combine payloads may be
 `[E]` or `[E, *payload]`; they are flattened to the kernel's `[E, D]`.
 
 The combine and the row gather are `torch.autograd.Function`s, and their
@@ -40,11 +42,26 @@ import math
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import segment_combine as sc
+
+
+def _kernel_route(t: torch.Tensor) -> bool:
+    """The hand-written kernel's route: a CUDA tensor, or a fake one."""
+    return t.is_cuda or isinstance(t, FakeTensor)
+
+
+def set_positions(mask: torch.Tensor) -> torch.Tensor:
+    """The positions where `mask` is set, ascending (int64).  On a fake
+    tensor (the dry run) the count is data, so every position is taken:
+    the shapes that follow are their upper bound."""
+    if isinstance(mask, FakeTensor):
+        return torch.arange(mask.numel(), device=mask.device)
+    return torch.nonzero(mask).squeeze(1)
 
 
 def _flat(msgs: torch.Tensor) -> torch.Tensor:
@@ -57,7 +74,7 @@ def _unflat(out: torch.Tensor, msgs: torch.Tensor, num_segments: int):
 
 def _dense(msgs, dst, num_segments, op, seg_ptr):
     """The dense route on `msgs`' device, no autograd."""
-    if not msgs.is_cuda:
+    if not _kernel_route(msgs):
         return sc.segment_combine_plain(msgs, dst, num_segments, op)
     if seg_ptr is None:
         raise ValueError("segment_combine: the dense route on a CUDA tensor "
@@ -70,7 +87,7 @@ def _dense(msgs, dst, num_segments, op, seg_ptr):
 
 def _tile(msgs, dst, num_segments, op, valid):
     """The tile route on `msgs`' device, no autograd."""
-    if not msgs.is_cuda:
+    if not _kernel_route(msgs):
         return sc.tile_segment_combine_plain(msgs, dst, num_segments, op,
                                              valid)
     out = sc.tile_segment_combine_cuda(_flat(msgs), dst, num_segments, op,
@@ -160,7 +177,7 @@ class GatherRoute:
         if mask is None:
             seg, order = torch.sort(idx.to(torch.int32), stable=True)
         else:
-            pos = torch.nonzero(mask).squeeze(1)
+            pos = set_positions(mask)
             seg, o = torch.sort(idx.index_select(0, pos).to(torch.int32),
                                 stable=True)
             order = pos.index_select(0, o)
@@ -237,7 +254,7 @@ class _EmbeddingBag(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, ids, bag_ids, num_bags, weights):
-        fwd = (eb.embedding_bag_forward_cuda if table.is_cuda
+        fwd = (eb.embedding_bag_forward_cuda if _kernel_route(table)
                else eb.embedding_bag_forward_plain)
         ctx.num_bags = num_bags
         ctx.save_for_backward(table, ids, bag_ids, weights)
@@ -248,7 +265,7 @@ class _EmbeddingBag(torch.autograd.Function):
     def backward(ctx, grad):
         table, ids, bag_ids, weights = ctx.saved_tensors
         need_table, _, _, _, need_w = ctx.needs_input_grad
-        bwd = (eb.embedding_bag_backward_cuda if grad.is_cuda
+        bwd = (eb.embedding_bag_backward_cuda if _kernel_route(grad)
                else eb.embedding_bag_backward_plain)
         g_table, g_w = bwd(grad.contiguous(), table, ids, bag_ids,
                            ctx.num_bags, weights, need_table, need_w)
@@ -274,7 +291,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     """
     del seg_ptr                     # the kernels find the bags themselves
     dtype = table.dtype
-    if table.is_cuda:               # the kernels' types and layouts
+    if _kernel_route(table):        # the kernels' types and layouts
         table = table.to(torch.float32).contiguous()
         ids = ids.contiguous()
         bag_ids = bag_ids.to(torch.int32).contiguous()
@@ -287,7 +304,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
 def _attention(q, k, v, causal, return_lse):
     """The forward on q's device: the kernel on a CUDA tensor, the plain
     version on a CPU one."""
-    if not q.is_cuda:
+    if not _kernel_route(q):
         return fa.flash_attention_plain(q, k, v, causal, return_lse)
     return fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal, return_lse)
@@ -299,7 +316,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.is_cuda:                   # the kernels' layout, saved once
+        if _kernel_route(q):            # the kernels' layout, saved once
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = _attention(q, k, v, causal, True)
         ctx.causal = causal
@@ -310,7 +327,7 @@ class _FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad):
         q, k, v, o, lse = ctx.saved_tensors
-        if grad.is_cuda:
+        if _kernel_route(grad):
             dq, dk, dv = fa.flash_attention_bwd_cuda(
                 q, k, v, o, lse, grad.contiguous(), ctx.causal)
         else:

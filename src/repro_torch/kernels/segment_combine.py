@@ -38,6 +38,7 @@ import math
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 
@@ -194,7 +195,18 @@ def segment_combine_cuda(msgs: torch.Tensor, dst: torch.Tensor,
 
     Raises on anything else, before any build or launch; `route` ("dense"
     or "tile") names the counter in `LAUNCHES` that this launch adds to.
+    On fake tensors (the dry run) nothing launches: the output is made and
+    the call charged the kernel's bytes (`launch.roofline.combine_bytes`,
+    every edge routed).
     """
+    if isinstance(msgs, FakeTensor):
+        from repro_torch.launch import roofline
+        e, d = msgs.shape
+        roofline.charge_kernel("segment_combine",
+                               0.0, roofline.combine_bytes(e, d,
+                                                           num_segments))
+        return torch.empty((num_segments, d), dtype=torch.float32,
+                           device=msgs.device)
     problem = _combine_problem(msgs, dst, seg_ptr, num_segments, op, route)
     if problem:
         raise ValueError(f"segment_combine_cuda: {problem}")
@@ -240,11 +252,17 @@ def compact_lanes_cuda(dst: torch.Tensor, num_segments: int,
     caller invariant, never a silent wrong answer).  Without it the wrapper
     reads the count back from the card.
     """
+    n = dst.shape[0]
+    dev = dst.device
+    if isinstance(dst, FakeTensor):     # the dry run: `valid` or all lanes
+        from repro_torch.launch import roofline
+        m = n if valid is None else valid
+        roofline.charge_kernel("compact_lanes", 0.0, n * 4 + 8 * m)
+        return (torch.empty(m, dtype=torch.int32, device=dev),
+                torch.empty(m, dtype=torch.int32, device=dev))
     problem = _compact_problem(dst, num_segments, valid)
     if problem:
         raise ValueError(f"compact_lanes_cuda: {problem}")
-    n = dst.shape[0]
-    dev = dst.device
     if n == 0:
         empty = torch.empty(0, dtype=torch.int32, device=dev)
         return empty, empty.clone()

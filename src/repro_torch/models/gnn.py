@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.autograd.function import once_differentiable
 
 from repro_torch.configs.base import GNNConfig
@@ -65,7 +66,7 @@ class EdgeRoutes:
     @staticmethod
     def build(src: torch.Tensor, dst: torch.Tensor, edge_mask: torch.Tensor,
               num_nodes: int) -> "EdgeRoutes":
-        pos = torch.nonzero(edge_mask & (dst < num_nodes)).squeeze(1)
+        pos = ops.set_positions(edge_mask & (dst < num_nodes))
         dst_sorted, order = torch.sort(
             dst.index_select(0, pos).to(torch.int32), stable=True)
         perm = pos.index_select(0, order)
@@ -150,7 +151,8 @@ class GraphBatch:
                                            self.node_feats.shape[0])
         if self.graph_ids is not None and self.pool_ptr is None:
             gid = self.graph_ids
-            if gid.numel() > 1 and bool((gid[1:] < gid[:-1]).any()):
+            if (gid.numel() > 1 and not isinstance(gid, FakeTensor)
+                    and bool((gid[1:] < gid[:-1]).any())):
                 raise ValueError("graph_ids must be sorted ascending (one "
                                  "graph's nodes together)")
             self.pool_ptr = segment_row_pointer(gid, self.num_graphs)

@@ -25,15 +25,19 @@ CUDA with no card present they raise.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.engine import resolve_device
+from repro_torch.dist import comm as dcomm
 from repro_torch.kernels import ops
 from repro_torch.nn.attention import apply_rope, decode_attention, gqa_attention
 from repro_torch.nn.ffn import ffn_apply, ffn_init
@@ -41,6 +45,73 @@ from repro_torch.nn.layers import dense_init, rmsnorm, rmsnorm_init
 from repro_torch.nn.moe import moe_ffn, moe_init
 
 _LAYER_TENSORS = ("ln_attn", "wq", "wk", "wv", "wo", "ln_ffn")
+
+
+@dataclasses.dataclass(frozen=True)
+class DistCtx:
+    """A device mesh and its logical axes (None: one device).  The process
+    groups of the axes are made at first use, by every rank in the same
+    order."""
+    mesh: Optional[object] = None     # torch DeviceMesh
+    dp: Tuple[str, ...] = ()          # data axes, e.g. ("pod", "data")
+    tp: Optional[str] = None          # tensor/expert axis, e.g. "model"
+    batch_over_dp: bool = True        # else every dp rank holds the batch
+
+    @property
+    def n_ep(self) -> int:
+        if self.mesh is None or self.tp is None:
+            return 1
+        return self._size(self.tp)
+
+    def _size(self, axis: str) -> int:
+        return self.mesh.shape[self.mesh.mesh_dim_names.index(axis)]
+
+    @property
+    def dp_size(self) -> int:
+        n = 1
+        for a in self.dp:
+            n *= self._size(a)
+        return n
+
+    @functools.cached_property
+    def tp_group(self):
+        return self.mesh.get_group(self.tp)
+
+    @functools.cached_property
+    def dp_group(self):
+        """The group of the ranks that share this rank's tp coordinate."""
+        if len(self.dp) == 1:
+            return self.mesh.get_group(self.dp[0])
+        names = self.mesh.mesh_dim_names
+        # the port's meshes (`launch.mesh.make_mesh`) lay the world's ranks
+        # out row-major; the grid is numpy, so no tensor op runs (the dry
+        # run's fake mode would refuse the mesh's own rank tensor)
+        ranks = np.arange(self.mesh.size()).reshape(self.mesh.shape)
+        ranks = ranks.transpose(
+            [names.index(a) for a in self.dp] + [names.index(self.tp)])
+        ranks = ranks.reshape(-1, self._size(self.tp))
+        mine = None
+        for j in range(ranks.shape[1]):   # every rank makes every group
+            members = [int(r) for r in ranks[:, j]]
+            g = dist.new_group(members)
+            if dist.get_rank() in members:
+                mine = g
+        return mine
+
+    @functools.cached_property
+    def tp_rank(self) -> int:
+        return dist.get_rank(self.tp_group)
+
+    @functools.cached_property
+    def tp_comm(self):
+        return dcomm.ProcessGroupComm(group=self.tp_group)
+
+    @functools.cached_property
+    def dp_comm(self):
+        return dcomm.ProcessGroupComm(group=self.dp_group)
+
+
+LOCAL_CTX = DistCtx()
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -73,7 +144,17 @@ class LM(nn.Module):
 
 
 # --------------------------------------------------------------------- init
-def init_layer(cfg: LMConfig, generator: torch.Generator) -> Layer:
+def _keep(tensors, shard, prefix):
+    """`tensors` (a layer's dict, sub-dicts included) through `shard(name,
+    tensor)` under `prefix`; as they are when `shard` is None."""
+    if shard is None:
+        return tensors
+    return {k: (_keep(v, shard, f"{prefix}{k}.") if isinstance(v, dict)
+                else shard(f"{prefix}{k}", v)) for k, v in tensors.items()}
+
+
+def init_layer(cfg: LMConfig, generator: torch.Generator, shard=None,
+               prefix: str = "") -> Layer:
     dt, dev = cfg.param_dtype, generator.device
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
     tensors = {"ln_attn": rmsnorm_init(d, dt, dev),
@@ -87,32 +168,70 @@ def init_layer(cfg: LMConfig, generator: torch.Generator) -> Layer:
                                   cfg.moe.n_experts, cfg.gated, dt)
     else:
         tensors["ffn"] = ffn_init(generator, d, cfg.d_ff, cfg.gated, dt)
-    return Layer(tensors)
+    return Layer(_keep(tensors, shard, prefix))
 
 
 def init_lm(cfg: LMConfig, generator: torch.Generator,
-            device="cuda") -> LM:
+            device="cuda", shard=None) -> LM:
     """Random weights drawn from `generator`, which must lie on `device`,
     with the JAX package's scales: dense weights N(0, 1/d_in), embedding
-    N(0, 0.02²), norms 1."""
+    N(0, 0.02²), norms 1.  `shard(name, tensor)`, when given, maps each
+    tensor to the block a mesh rank keeps as soon as it is drawn (the
+    names of `LM.named_parameters()`), so the rank never holds more than
+    one whole layer; the weights are those of the unsharded init."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, device {dev}")
     dt = cfg.param_dtype
-    layers = [init_layer(cfg, generator) for _ in range(cfg.n_layers)]
-    embed = (torch.randn((cfg.padded_vocab, cfg.d_model), generator=generator,
-                         device=generator.device) * 0.02).to(dt)
-    head = (None if cfg.tie_embeddings
-            else dense_init(generator, cfg.d_model, cfg.padded_vocab, dt))
-    return LM(embed, layers, rmsnorm_init(cfg.d_model, dt, dev), head)
+    keep = shard or (lambda name, t: t)
+    layers = [init_layer(cfg, generator, shard, f"layers.{i}.")
+              for i in range(cfg.n_layers)]
+    embed = keep("embed", (torch.randn((cfg.padded_vocab, cfg.d_model),
+                                       generator=generator,
+                                       device=generator.device) * 0.02
+                           ).to(dt))
+    head = (None if cfg.tie_embeddings else keep("head", dense_init(
+        generator, cfg.d_model, cfg.padded_vocab, dt)))
+    return LM(embed, layers, keep("ln_out", rmsnorm_init(cfg.d_model, dt,
+                                                         dev)), head)
 
 
-def params_from_numpy(tree, cfg: LMConfig, device="cuda") -> LM:
+def param_shapes(cfg: LMConfig) -> Dict[str, tuple]:
+    """{name: (shape, dtype)} of `LM.named_parameters()`, with nothing
+    allocated."""
+    d, hd, dt = cfg.d_model, cfg.d_head, cfg.param_dtype
+    layer = {"ln_attn": ((d,), dt), "wq": ((d, cfg.n_heads * hd), dt),
+             "wk": ((d, cfg.n_kv * hd), dt), "wv": ((d, cfg.n_kv * hd), dt),
+             "wo": ((cfg.n_heads * hd, d), dt), "ln_ffn": ((d,), dt)}
+    if cfg.moe:
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        layer.update({"moe.router": ((d, e), torch.float32),
+                      "moe.w_in": ((e, d, f), dt),
+                      "moe.w_out": ((e, f, d), dt)})
+        if cfg.gated:
+            layer["moe.w_gate"] = ((e, d, f), dt)
+    else:
+        layer.update({"ffn.w_in": ((d, cfg.d_ff), dt),
+                      "ffn.w_out": ((cfg.d_ff, d), dt)})
+        if cfg.gated:
+            layer["ffn.w_gate"] = ((d, cfg.d_ff), dt)
+    out = {"embed": ((cfg.padded_vocab, d), dt)}
+    for i in range(cfg.n_layers):
+        out.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    out["ln_out"] = ((d,), dt)
+    if not cfg.tie_embeddings:
+        out["head"] = ((d, cfg.padded_vocab), dt)
+    return out
+
+
+def params_from_numpy(tree, cfg: LMConfig, device="cuda", shard=None) -> LM:
     """The JAX package's `init_lm` parameters, as numpy arrays (layers
     stacked `[L, ...]`, an MoE layer's experts `[L, E, ...]`; `head` absent
     when the embeddings are tied), as the port's `LM` in `cfg.param_dtype`
-    on `device` (an MoE router stays float32, as in JAX)."""
+    on `device` (an MoE router stays float32, as in JAX); `shard` as in
+    `init_lm`."""
     dev = resolve_device(device)
+    keep = shard or (lambda name, t: t)
 
     def t(a, dtype=cfg.param_dtype):
         # a float32 copy: numpy has no bfloat16 that torch can wrap, and
@@ -129,22 +248,26 @@ def params_from_numpy(tree, cfg: LMConfig, device="cuda") -> LM:
         tensors[block] = {k: t(v[i], torch.float32 if k == "router"
                                else cfg.param_dtype)
                           for k, v in stacked[block].items()}
-        layers.append(Layer(tensors))
+        layers.append(Layer(_keep(tensors, shard, f"layers.{i}.")))
     head = tree.get("head")
     if (head is None) != cfg.tie_embeddings:
         raise ValueError("a 'head' is present exactly when the embeddings "
                          "are not tied")
-    return LM(t(tree["embed"]), layers, t(tree["ln_out"]),
-              None if head is None else t(head))
+    return LM(keep("embed", t(tree["embed"])), layers,
+              keep("ln_out", t(tree["ln_out"])),
+              None if head is None else keep("head", t(head)))
 
 
 # ------------------------------------------------------------------ forward
-def _qkv(p: Layer, x, cfg: LMConfig, positions):
+def _qkv(p: Layer, x, cfg: LMConfig, positions, h=None):
     """Normed projections with RoPE: q `[B, S, Kv, G, H]`, k, v
-    `[B, S, Kv, H]`; `positions` broadcasts against `[B, heads, S]`."""
+    `[B, S, Kv, H]`; `positions` broadcasts against `[B, heads, S]`.  `h`
+    is the normed input when the caller has it.  The head counts are the
+    weights' (a rank's block of heads on a mesh)."""
     b, s, _ = x.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv, cfg.d_head
-    h = rmsnorm(x, p.ln_attn)
+    hd = cfg.d_head
+    nh, nkv = p.wq.shape[1] // hd, p.wk.shape[1] // hd
+    h = rmsnorm(x, p.ln_attn) if h is None else h
     q = (h @ p.wq).reshape(b, s, nh, hd).transpose(1, 2)
     k = (h @ p.wk).reshape(b, s, nkv, hd).transpose(1, 2)
     v = (h @ p.wv).reshape(b, s, nkv, hd)
@@ -153,15 +276,22 @@ def _qkv(p: Layer, x, cfg: LMConfig, positions):
     return q.reshape(b, s, nkv, nh // nkv, hd), k, v
 
 
-def _attention_block(p: Layer, x, cfg: LMConfig, positions):
+def _attention_block(p: Layer, x, cfg: LMConfig, positions,
+                     ctx: "DistCtx" = LOCAL_CTX):
+    if ctx.mesh is not None:
+        return _attention_block_mesh(p, x, cfg, positions, ctx)
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     o = gqa_attention(q, k, v, causal=True, impl=cfg.attention_impl)
     return x + o.reshape(b, s, cfg.n_heads * cfg.d_head) @ p.wo, (k, v)
 
 
-def _ffn_block(p: Layer, x, cfg: LMConfig):
-    """(x + the FFN or MoE of the normed x, the MoE aux loss or 0.0)."""
+def _ffn_block(p: Layer, x, cfg: LMConfig, ctx: "DistCtx" = LOCAL_CTX,
+               s_full: Optional[int] = None):
+    """(x + the FFN or MoE of the normed x, the MoE aux loss or 0.0).  On
+    a mesh `s_full` is the whole sequence's length."""
+    if ctx.mesh is not None:
+        return _ffn_block_mesh(p, x, cfg, ctx, s_full or x.shape[1])
     h = rmsnorm(x, p.ln_ffn)
     if cfg.moe is None:
         return x + ffn_apply(p.ffn, h, cfg.activation), 0.0
@@ -170,6 +300,84 @@ def _ffn_block(p: Layer, x, cfg: LMConfig):
     out, aux = moe_ffn(p.moe, h.reshape(b * s, d), m.top_k, m.n_experts,
                        m.capacity_factor, cfg.activation)
     return x + out.reshape(b, s, d), aux
+
+
+# ------------------------------------------------------------- on a mesh
+def _seq_sharded(cfg: LMConfig, ctx: DistCtx, s_len: int) -> bool:
+    """Whether the residual stream is split over tp along the sequence
+    between layers (`cfg.seq_shard_activations`, when tp divides S)."""
+    return (cfg.seq_shard_activations and ctx.n_ep > 1
+            and s_len % ctx.n_ep == 0)
+
+
+def _activation_constraint(x, cfg: LMConfig, ctx: DistCtx):
+    """Between-layer activations: batch over dp (the rank's rows already),
+    sequence over tp where `cfg.seq_shard_activations`: the rank's block
+    of the sequence of a replicated `x`."""
+    if ctx.mesh is None or not _seq_sharded(cfg, ctx, x.shape[1]):
+        return x
+    n = x.shape[1] // ctx.n_ep
+    return x.narrow(1, ctx.tp_rank * n, n)
+
+
+def _block_input(h, cfg, ctx, s_full):
+    """A block's normed input over the whole sequence."""
+    if _seq_sharded(cfg, ctx, s_full):
+        return dcomm.group_all_gather(h, 1, ctx.tp_group)
+    return h
+
+
+def _block_output(y, cfg, ctx, split: bool):
+    """A block's output as the residual stream holds it: the sum over tp
+    of the ranks' parts (`split`) or this rank's whole, then the rank's
+    block of the sequence when it is split."""
+    seq = _seq_sharded(cfg, ctx, y.shape[1])
+    if split:
+        return (dcomm.group_reduce_scatter(y, 1, ctx.tp_group) if seq
+                else dcomm.group_all_reduce(y, ctx.tp_group))
+    return _activation_constraint(y, cfg, ctx) if seq else y
+
+
+def _attention_block_mesh(p: Layer, x, cfg, positions, ctx):
+    s_full = positions.shape[-1]
+    h = _block_input(rmsnorm(x, p.ln_attn), cfg, ctx, s_full)
+    b = h.shape[0]
+    q, k, v = _qkv(p, h, cfg, positions, h=h)
+    o = gqa_attention(q, k, v, causal=True, impl=cfg.attention_impl)
+    y = o.reshape(b, s_full, -1) @ p.wo
+    split = p.wq.shape[1] < cfg.n_heads * cfg.d_head
+    return x + _block_output(y, cfg, ctx, split), (k, v)
+
+
+def _expert_blocks(mp, ctx):
+    """The layer's experts with their FSDP blocks gathered over dp (the
+    gather's backward sums the gradient over dp and keeps the rank's
+    block)."""
+    out = dict(mp.items())
+    if ctx.dp_size > 1:
+        for name, dim in (("w_in", 1), ("w_gate", 1), ("w_out", 2)):
+            if name in out and out[name].shape[dim] * ctx.dp_size == (
+                    out["router"].shape[0]):
+                out[name] = dcomm.group_all_gather(out[name], dim,
+                                                   ctx.dp_group)
+    return out
+
+
+def _ffn_block_mesh(p: Layer, x, cfg, ctx, s_full):
+    h = _block_input(rmsnorm(x, p.ln_ffn), cfg, ctx, s_full)
+    b, s, d = h.shape
+    if cfg.moe is None:
+        y = ffn_apply(p.ffn, h, cfg.activation)
+        return x + _block_output(y, cfg, ctx, ctx.n_ep > 1), 0.0
+    m = cfg.moe
+    tokens = ctx.dp_comm if ctx.dp_size > 1 and ctx.batch_over_dp else None
+    out, aux = moe_ffn(_expert_blocks(p.moe, ctx), h.reshape(b * s, d),
+                       m.top_k, m.n_experts, m.capacity_factor,
+                       cfg.activation,
+                       comm=ctx.tp_comm if ctx.n_ep > 1 else None,
+                       token_comm=tokens)
+    return x + _block_output(out.reshape(b, s, d), cfg, ctx, False), aux
+
 
 
 class _GradCast(torch.autograd.Function):
@@ -214,45 +422,131 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)[:, None, :]
 
 
-def _layer(p: Layer, x, cfg: LMConfig, positions):
-    x, _ = _attention_block(p, x, cfg, positions)
-    x, aux = _ffn_block(p, x, cfg)
-    return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+def _layer(p: Layer, x, cfg: LMConfig, positions, ctx=LOCAL_CTX):
+    x, _ = _attention_block(p, x, cfg, positions, ctx)
+    x, aux = _ffn_block(p, x, cfg, ctx, positions.shape[-1])
+    if not isinstance(aux, torch.Tensor):         # a dense layer's 0.0
+        aux = x.new_zeros((), dtype=torch.float32)
+    return x, aux
 
 
-def lm_forward(params: LM, tokens: torch.Tensor, cfg: LMConfig):
+def _embed_mesh(embed: torch.Tensor, tokens: torch.Tensor, cfg: LMConfig,
+                ctx: DistCtx):
+    """The lookup in a table whose rows are split over tp: the rank's rows
+    gathered (`ops.gather_rows`, its backward the combine kernel over the
+    rank's tokens), the others zero, summed over tp (the rank's block of
+    the sequence when it is split)."""
+    b, s = tokens.shape
+    if ctx.n_ep == 1:
+        return embed_lookup(embed, tokens)
+    rows = embed.shape[0]
+    local = tokens - ctx.tp_rank * rows
+    inside = (local >= 0) & (local < rows)
+    g = ops.gather_rows(embed, local.clamp(0, rows - 1).reshape(-1))
+    g = torch.where(inside.reshape(-1, 1), g,
+                    torch.zeros((), dtype=g.dtype, device=g.device))
+    return _block_output(g.reshape(b, s, -1), cfg, ctx, True)
+
+
+def _logits_mesh(params: LM, x, cfg: LMConfig, ctx: DistCtx):
+    """The rank's vocab block of the logits `[B, S, V/tp]` (padding
+    columns masked by their global index)."""
+    x = rmsnorm(x, params.ln_out)
+    head = params.embed.T if params.head is None else params.head
+    logits = x @ head
+    if cfg.padded_vocab == cfg.vocab:
+        return logits
+    v_loc = logits.shape[-1]
+    lo = ctx.tp_rank * v_loc if ctx.n_ep > 1 else 0
+    mask = torch.arange(lo, lo + v_loc, device=x.device) < cfg.vocab
+    return torch.where(mask, logits.float(), torch.finfo(torch.float32).min)
+
+
+def _vocab_parallel_ll(logits: torch.Tensor, labels: torch.Tensor,
+                       ctx: DistCtx) -> torch.Tensor:
+    """log p(label) in float32 from the ranks' vocab blocks: the row max
+    (no gradient) and the sum of exponentials all-reduced over tp, the
+    label's logit from the rank that holds it."""
+    z = logits.float()
+    labels = labels.long()
+    if ctx.n_ep == 1:
+        return torch.log_softmax(z, dim=-1).gather(-1, labels[..., None])[
+            ..., 0]
+    group = ctx.tp_group
+    z = z - dcomm.group_max(z.max(-1).values, group)[..., None]
+    total = dcomm.group_all_reduce(z.exp().sum(-1), group)
+    v_loc = z.shape[-1]
+    lab = labels - ctx.tp_rank * v_loc
+    inside = (lab >= 0) & (lab < v_loc)
+    picked = z.gather(-1, lab.clamp(0, v_loc - 1)[..., None])[..., 0]
+    picked = dcomm.group_all_reduce(torch.where(inside, picked, 0.0), group)
+    return picked - total.log()
+
+
+def lm_forward(params: LM, tokens: torch.Tensor, cfg: LMConfig,
+               ctx: DistCtx = LOCAL_CTX):
     """tokens `[B, S]` -> (logits `[B, S, padded_vocab]`, the MoE aux loss
     averaged over the layers, a float32 scalar; 0 for a dense config).
     With `cfg.remat` and autograd recording, each layer is checkpointed
-    and recomputed in the backward."""
+    and recomputed in the backward.  On a mesh (`ctx`), tokens are the
+    rank's rows and the logits the rank's vocab block."""
     b, s = tokens.shape
-    x = embed_lookup(params.embed, tokens)
+    mesh = ctx.mesh is not None
+    x = (_embed_mesh(params.embed, tokens, cfg, ctx) if mesh
+         else embed_lookup(params.embed, tokens))
     positions = _positions(b, s, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for p in params.layers:
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                _layer, p, x, cfg, positions, use_reentrant=False)
+                _layer, p, x, cfg, positions, ctx, use_reentrant=False)
         else:
-            x, a = _layer(p, x, cfg, positions)
+            x, a = _layer(p, x, cfg, positions, ctx)
         aux = aux + a
     x = grad_cast(x, cfg.param_dtype)
-    return _logits(params, x, cfg), aux / cfg.n_layers
+    if not mesh:
+        return _logits(params, x, cfg), aux / cfg.n_layers
+    if _seq_sharded(cfg, ctx, s):
+        # unshard the sequence before the vocab projection, so the logits
+        # land [B/dp, S, V/tp]
+        x = dcomm.group_all_gather(x, 1, ctx.tp_group)
+    return _logits_mesh(params, x, cfg, ctx), aux / cfg.n_layers
 
 
 def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: LMConfig,
-            aux_weight: float = 0.01):
+            ctx: DistCtx = LOCAL_CTX, aux_weight: float = 0.01):
     """Mean next-token cross entropy in float32 over the `mask`ed
     positions (all when absent), plus `aux_weight` times the MoE aux loss:
-    (loss, {"ce": ..., "moe_aux": ...})."""
-    logits, aux = lm_forward(params, batch["tokens"], cfg)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    (loss, {"ce": ..., "moe_aux": ...}).
+
+    On a mesh the batch is the rank's rows, and the first value is the
+    rank's share of the loss (the shares over every rank sum to it); the
+    parts add "loss", the whole loss (no gradient)."""
+    logits, aux = lm_forward(params, batch["tokens"], cfg, ctx)
+    mesh = ctx.mesh is not None
+    if mesh:
+        ll = _vocab_parallel_ll(logits, batch["labels"], ctx)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("mask")
     mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
-    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return loss + aux_weight * aux, {"ce": loss, "moe_aux": aux}
+    if not mesh:
+        loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return loss + aux_weight * aux, {"ce": loss, "moe_aux": aux}
+    split = ctx.dp_size > 1 and ctx.batch_over_dp
+    count = mask.sum()
+    if split:
+        count = dcomm.group_all_reduce(count.detach(), ctx.dp_group)
+    ce = -(ll * mask).sum() / torch.clamp(count, min=1.0)
+    copies = ctx.n_ep * (1 if split else ctx.dp_size)
+    share = ce / copies + aux_weight * aux / (ctx.n_ep * ctx.dp_size)
+    with torch.no_grad():
+        whole = (dcomm.group_all_reduce(ce, ctx.dp_group) if split
+                 else ce.detach())
+    return share, {"ce": whole, "moe_aux": aux.detach(),
+                   "loss": whole + aux_weight * aux.detach()}
 
 
 # ------------------------------------------------------------------ serving
@@ -266,30 +560,59 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
             "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
+def _serving_cfg(cfg: LMConfig, ctx: DistCtx) -> LMConfig:
+    """Serving steps keep the sequence whole between layers (JAX's
+    `prefill` and `decode_step` apply no activation constraint)."""
+    if ctx.mesh is None or not cfg.seq_shard_activations:
+        return cfg
+    return dataclasses.replace(cfg, seq_shard_activations=False)
+
+
 @torch.no_grad()
 def prefill(params: LM, tokens: torch.Tensor, cfg: LMConfig,
-            max_len: Optional[int] = None):
+            ctx: DistCtx = LOCAL_CTX, max_len: Optional[int] = None):
     """Run the full prompt; returns (last-token logits `[B, V]`, a cache of
-    `max_len` positions holding the prompt's k/v)."""
+    `max_len` positions holding the prompt's k/v).  On a mesh: the rank's
+    rows, its kv heads in the cache and its vocab block of the logits."""
     b, s = tokens.shape
     max_len = max_len or s
-    cache = init_cache(cfg, b, max_len, params.embed.dtype, tokens.device)
-    x = params.embed[tokens]
+    if ctx.mesh is None:
+        cache = init_cache(cfg, b, max_len, params.embed.dtype,
+                           tokens.device)
+        x = params.embed[tokens]
+    else:
+        cfg = _serving_cfg(cfg, ctx)
+        cache = _local_cache(params, cfg, b, max_len, tokens.device)
+        x = _embed_mesh(params.embed, tokens, cfg, ctx)
     positions = _positions(b, s, tokens.device)
     for i, p in enumerate(params.layers):
-        x, (k, v) = _attention_block(p, x, cfg, positions)
-        x, _ = _ffn_block(p, x, cfg)
+        x, (k, v) = _attention_block(p, x, cfg, positions, ctx)
+        x, _ = _ffn_block(p, x, cfg, ctx, s)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     cache["len"].fill_(s)
+    if ctx.mesh is not None:
+        return _logits_mesh(params, x[:, -1:], cfg, ctx)[:, 0], cache
     return _logits(params, x[:, -1:], cfg)[:, 0], cache
+
+
+def _local_cache(params: LM, cfg: LMConfig, b: int, max_len: int, device):
+    """A cache for the rank's kv heads (the layers' `wk` blocks)."""
+    kv_loc = params.layers[0].wk.shape[1] // cfg.d_head
+    shape = (cfg.n_layers, b, max_len, kv_loc, cfg.d_head)
+    dt = params.embed.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "len": torch.zeros((b,), dtype=torch.int32, device=device)}
 
 
 @torch.no_grad()
 def decode_step(params: LM, cache: Dict[str, torch.Tensor],
-                token: torch.Tensor, cfg: LMConfig):
+                token: torch.Tensor, cfg: LMConfig,
+                ctx: DistCtx = LOCAL_CTX):
     """One decode step.  token `[B]` int; cache from `init_cache`/`prefill`.
-    Returns (logits `[B, V]`, the cache, updated in place).
+    Returns (logits `[B, V]`, the cache, updated in place); on a mesh as
+    `prefill` places them.
 
     Every slot writes its new k/v at `pos = cache["len"]`, clamped into the
     cache as `dynamic_update_slice` clamps, free slots included, and every
@@ -297,7 +620,12 @@ def decode_step(params: LM, cache: Dict[str, torch.Tensor],
     """
     b = token.shape[0]
     max_len = cache["k"].shape[2]
-    x = params.embed[token[:, None]]                          # [B, 1, D]
+    mesh = ctx.mesh is not None
+    if mesh:
+        cfg = _serving_cfg(cfg, ctx)
+        x = _embed_mesh(params.embed, token[:, None], cfg, ctx)
+    else:
+        x = params.embed[token[:, None]]                      # [B, 1, D]
     pos = cache["len"]                                        # [B]
     rows = torch.arange(b, device=token.device)
     slot = pos.clamp(0, max_len - 1).long()
@@ -308,7 +636,13 @@ def decode_step(params: LM, cache: Dict[str, torch.Tensor],
         k_c[rows, slot] = k[:, 0]
         v_c[rows, slot] = v[:, 0]
         o = decode_attention(q, k_c, v_c, pos)
-        x = x + o.reshape(b, 1, cfg.n_heads * cfg.d_head) @ p.wo
-        x, _ = _ffn_block(p, x, cfg)
+        y = o.reshape(b, 1, -1) @ p.wo
+        if mesh:
+            y = _block_output(y, cfg, ctx,
+                              p.wq.shape[1] < cfg.n_heads * cfg.d_head)
+        x = x + y
+        x, _ = _ffn_block(p, x, cfg, ctx, 1)
     cache["len"] += 1
+    if mesh:
+        return _logits_mesh(params, x, cfg, ctx)[:, 0], cache
     return _logits(params, x, cfg)[:, 0], cache

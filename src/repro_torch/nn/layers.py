@@ -39,6 +39,24 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps)).to(dt) * gamma.to(dt)
 
 
+def layernorm_init(d: int, dtype=torch.float32, device="cuda"):
+    """`{"gamma": ones [d], "beta": zeros [d]}` on `device`."""
+    dev = resolve_device(device)
+    return {"gamma": torch.ones((d,), dtype=dtype, device=dev),
+            "beta": torch.zeros((d,), dtype=dtype, device=dev)}
+
+
+def layernorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    """The JAX rounding order: float32 mean and (biased) variance, the
+    normalised value cast to x's dtype, then the affine in that dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * p["gamma"].to(dt) + p["beta"].to(dt)
+
+
 def mlp_init(generator: torch.Generator, dims, dtype=torch.float32):
     """`[{"w": [a, b], "b": [b]}]` for consecutive `dims`: `dense_init`
     weights drawn from `generator` in layer order, zero biases, on the

@@ -15,15 +15,24 @@ written from the kept hits only.
 On the card every data-dependent step is a kernel of the port: the
 dispatch gather `x[tokmap]` is `ops.gather_rows` (its backward the
 combine kernel K1), and the combine `out.at[tokmap].add(w·y)` is
-`ops.route_sum` over a `GatherRoute` of the valid slots (K1, no
-`index_add_` and no atomic).  The expert products are plain batched
-matmuls, which the JAX package leaves to XLA too.
+`ops.route_sum` over a `GatherRoute` of the slots (K1, no `index_add_`
+and no atomic), whose empty slots sum into one extra row that is cut
+off.  Every shape is static (no `nonzero`, no host read), so a step runs
+on fake tensors too (the dry run).  The expert products are plain
+batched matmuls, which the JAX package leaves to XLA too.
 
 The expert-sharded form follows the agent pattern: routing is computed
 redundantly on every shard, each shard pre-combines the hits of its own
 experts (a combiner agent), and one `comm.psum` merges the partials (the
 single combiner→master message).  It takes a communicator of
 `repro_torch.dist.comm` in place of JAX's `axis_name`.
+
+Over a device mesh the tokens are split over the data axes too
+(`token_comm`, a communicator of that group): the expert counts are
+summed over it, so the capacity, each hit's position in its expert's
+queue (the hits of lower ranks first) and the aux loss are the whole
+batch's, and a sharded step keeps and drops the hits an unsharded one
+does.
 """
 from __future__ import annotations
 
@@ -75,13 +84,23 @@ def capacity(tokens: int, top_k: int, n_experts: int,
     return int(max(8, round(tokens * top_k / n_experts * capacity_factor)))
 
 
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Occurrences of each of `0..n-1` in `ids` (int64; a static-shape
+    `bincount`)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def dispatch(top_w: torch.Tensor, top_i: torch.Tensor, e_loc: int, my: int,
-             cap: int, dtype):
+             cap: int, dtype, offset=None):
     """Pack this shard's hits into `[e_loc·cap]` slots: (tokmap int64 and
     wmap in `dtype`, each `[e_loc·cap]`, and the valid-slot mask).  The
     hits are sorted stably by local expert (other shards' hits last); a
-    hit at position `pos >= cap` of its expert is dropped.  Only kept hits
-    are written, so every slot has at most one writer."""
+    hit at position `pos >= cap` of its expert is dropped.  `offset`
+    (`[e_loc]`, the hits other token shards put before these) moves each
+    expert's positions up.  Only kept hits are written to a slot (the
+    others to a trash slot that is cut off), so every slot has at most one
+    writer."""
     t, k = top_i.shape
     dev = top_i.device
     flat_e = top_i.reshape(-1)
@@ -89,17 +108,20 @@ def dispatch(top_w: torch.Tensor, top_i: torch.Tensor, e_loc: int, my: int,
     mine = torch.div(flat_e, e_loc, rounding_mode="floor") == my
     le = torch.where(mine, flat_e - my * e_loc, e_loc)
     le_s, order = torch.sort(le, stable=True)
-    counts = torch.bincount(le_s, minlength=e_loc + 1)
+    counts = _counts(le_s, e_loc + 1)
     offsets = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=dev) - offsets[le_s]
-    kept = torch.nonzero((le_s < e_loc) & (pos < cap)).squeeze(1)
-    slot = le_s[kept] * cap + pos[kept]
-    tokmap = torch.zeros(e_loc * cap, dtype=torch.int64, device=dev)
-    tokmap[slot] = flat_t[order[kept]]
-    wmap = torch.zeros(e_loc * cap, dtype=dtype, device=dev)
-    wmap = wmap.index_put((slot,), top_w.reshape(-1)[order[kept]].to(dtype))
-    valid = torch.zeros(e_loc * cap, dtype=torch.bool, device=dev)
-    valid[slot] = True
+    if offset is not None:
+        pos = pos + torch.cat([offset, offset.new_zeros(1)])[le_s]
+    kept = (le_s < e_loc) & (pos < cap)
+    n = e_loc * cap
+    slot = torch.where(kept, le_s * cap + pos, n)
+    tokmap = torch.zeros(n + 1, dtype=torch.int64, device=dev).scatter_(
+        0, slot, flat_t[order])[:n]
+    wmap = torch.zeros(n + 1, dtype=dtype, device=dev).scatter_(
+        0, slot, top_w.reshape(-1)[order].to(dtype))[:n]
+    valid = torch.zeros(n + 1, dtype=torch.bool, device=dev).scatter_(
+        0, slot, kept)[:n]
     return tokmap, wmap, valid
 
 
@@ -113,24 +135,27 @@ def _experts(params, b: torch.Tensor, act) -> torch.Tensor:
     return torch.einsum("ecf,efd->ecd", h, params["w_out"])
 
 
-def _partial(params, x, top_w, top_i, n_experts, capacity_factor, act, my):
+def _partial(params, x, top_w, top_i, act, my, cap, offset):
     """Shard `my`'s pre-combined output `[T, D]`: its kept hits through
-    its experts, weighted and summed per token."""
+    its experts, weighted and summed per token (the empty slots into a
+    row T that is cut off)."""
     t, d = x.shape
     e_loc = params["w_in"].shape[0]
-    cap = capacity(t, top_i.shape[1], n_experts, capacity_factor)
-    tokmap, wmap, valid = dispatch(top_w, top_i, e_loc, my, cap, x.dtype)
+    tokmap, wmap, valid = dispatch(top_w, top_i, e_loc, my, cap, x.dtype,
+                                   None if offset is None
+                                   else offset[my * e_loc:(my + 1) * e_loc])
     b = ops.gather_rows(x, tokmap)
     b = torch.where(valid[:, None], b, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
     y = _experts(params, b.reshape(e_loc, cap, d), act)
-    combine = ops.GatherRoute.build(tokmap, t, mask=valid)
-    return ops.route_sum(wmap[:, None] * y.reshape(e_loc * cap, d), combine)
+    combine = ops.GatherRoute.build(torch.where(valid, tokmap, t), t + 1)
+    return ops.route_sum(wmap[:, None] * y.reshape(e_loc * cap, d),
+                         combine)[:t]
 
 
 def moe_ffn(params, x: torch.Tensor, top_k: int, n_experts: int,
             capacity_factor: float = 1.25, activation: str = "silu",
-            comm=None):
+            comm=None, token_comm=None):
     """x: `[T, D]` tokens.  Returns (out `[T, D]` in x's dtype, the aux
     loss, a float32 scalar).
 
@@ -142,6 +167,10 @@ def moe_ffn(params, x: torch.Tensor, top_k: int, n_experts: int,
     a rank of a process group): each shard's partial is pre-combined, one
     `comm.psum` sums them in shard order, and the result is the whole
     output.
+
+    `token_comm` (a `ProcessGroupComm` over the ranks that split the
+    tokens, each holding as many) makes the capacity, the queue positions
+    and the aux loss those of all their tokens together.
     """
     act = ACTIVATIONS[activation]
     if comm is not None:
@@ -160,14 +189,24 @@ def moe_ffn(params, x: torch.Tensor, top_k: int, n_experts: int,
                          f"{n_experts}")
     t = x.shape[0]
     gates, top_w, top_i = route(router, x, top_k)
-    # Switch load-balance loss: E · mean(frac_tokens · frac_prob)
-    counts = torch.bincount(top_i.reshape(-1), minlength=n_experts).float()
-    aux = n_experts * torch.mean((counts / (t * top_k)) * gates.mean(0))
+    counts = _counts(top_i.reshape(-1), n_experts)
+    offset = None
+    if token_comm is None:
+        # Switch load-balance loss: E · mean(frac_tokens · frac_prob)
+        aux = n_experts * torch.mean((counts.float() / (t * top_k))
+                                     * gates.mean(0))
+    else:
+        every = token_comm.all_gather(counts[None])       # [ranks, E]
+        offset = every[:token_comm.rank].sum(0)
+        t = t * token_comm.k
+        probs = token_comm.psum(gates.sum(0)[None])[0] / t
+        aux = n_experts * torch.mean((every.sum(0).float() / (t * top_k))
+                                     * probs)
+    cap = capacity(t, top_k, n_experts, capacity_factor)
     if comm is None:
-        return _partial(params, x, top_w, top_i, n_experts, capacity_factor,
-                        act, 0), aux
+        return _partial(params, x, top_w, top_i, act, 0, cap, offset), aux
     partials = torch.stack([
-        _partial(p, x, top_w, top_i, n_experts, capacity_factor, act, s)
+        _partial(p, x, top_w, top_i, act, s, cap, offset)
         for p, s in zip(shards, comm.shards)])
     return comm.psum(partials)[0], aux
 

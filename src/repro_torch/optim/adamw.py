@@ -46,11 +46,17 @@ class AdamW(torch.optim.Optimizer):
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.01,
                  clip_norm: Optional[float] = 1.0,
-                 schedule: Optional[Callable] = None):
+                 schedule: Optional[Callable] = None,
+                 sq_norm: Optional[Callable] = None):
+        """`sq_norm`, when given, maps the per-parameter sums of squares
+        of the float32 gradients (in parameter order) to the global sum of
+        squares that the clip reads: a sharded run sums its blocks over
+        the ranks there."""
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay))
         self.clip_norm = clip_norm
         self.schedule = schedule
+        self.sq_norm = sq_norm
         self.steps = 0
 
     @torch.no_grad()
@@ -70,7 +76,8 @@ class AdamW(torch.optim.Optimizer):
         g32 = [(torch.zeros_like(p, dtype=torch.float32) if g is None
                 else g.to(torch.float32)) for (_, p), g in zip(items, grads)]
         if self.clip_norm is not None and g32:
-            gn = global_norm(g32)
+            gn = (global_norm(g32) if self.sq_norm is None else torch.sqrt(
+                self.sq_norm([torch.sum(g ** 2) for g in g32])))
             scale = torch.clamp(self.clip_norm / torch.clamp(gn, min=1e-9),
                                 max=1.0)
             g32 = [g * scale for g in g32]

@@ -265,8 +265,11 @@ def test_training_reduces_loss():
 
 
 def test_train_refuses_a_mesh_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        train.main(TRAIN_ARGV + ["--mesh", "1x2", "--device", "cpu"])
+    """A mesh runs since the mesh slice (tests/test_torch_mesh_training.py);
+    one whose blocks would not split evenly is refused before any rank
+    starts."""
+    with pytest.raises(ValueError, match="does not split"):
+        train.main(TRAIN_ARGV + ["--mesh", "1x3", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(TRAIN_ARGV)
