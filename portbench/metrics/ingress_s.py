@@ -1,0 +1,6 @@
+"""`DevicePartition.from_graph` of the whole graph, host clock around the
+call, ended by a synchronise."""
+
+
+def read(run):
+    return run.ingress_seconds
