@@ -40,6 +40,7 @@ from repro_torch.graph.structures import (DEFAULT_BUCKET_BOUNDS,
                                           stable_argsort,
                                           validate_edge_delta)
 from repro_torch.kernels.segment_combine import segment_row_pointer
+from repro_torch.trace import span, spanned, timed
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -72,6 +73,10 @@ class DevicePartition:
     slots whose first `num_masters` are its masters.  Edge columns are
     optional: a partition that only anchors slot statics and `aux` for
     apply carries none.  `device` is always set.
+
+    `ingress_s` holds the host seconds of each phase of `from_graph` that
+    built the partition ("fill", "sort_dst", "csr", "upload"; empty for a
+    partition built otherwise).
     """
 
     src: Optional[torch.Tensor]        # [E_pad] int32 src slot
@@ -94,6 +99,7 @@ class DevicePartition:
     seg_ptr: Optional[torch.Tensor] = None      # [num_slots + 1] int32
     shards: int = 1
     device: Optional[torch.device] = None
+    ingress_s: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.device is None:
@@ -130,53 +136,64 @@ class DevicePartition:
         dst sort runs over the filled prefix, so every `chunk_size` gives
         bitwise the same columns with no second copy of the edge list.
         The host build's two stable sorts (by dst, by src) run on `device`.
+        The partition's `ingress_s` gets each phase's host seconds; on CUDA
+        a phase ends when the device work it launched has finished.
         """
         dev = resolve_device(device)
+        spent: Dict[str, float] = {}
         source = graph if hasattr(graph, "chunks") else graph.chunk_source(
             chunk_size or max(graph.num_edges, 1))
         v, e = source.num_vertices, source.num_edges
         e_pad = pad_to or (e + edge_slack)
         assert e_pad >= e, (e_pad, e)
-        psrc = np.full(e_pad, v, dtype=np.int32)
-        pdst = np.full(e_pad, v, dtype=np.int32)
-        mask = np.zeros(e_pad, dtype=bool)
-        mask[:e] = True
-        props = {k: np.zeros(e_pad, dtype=dt)
-                 for k, dt in source.prop_dtypes.items()}
-        out_deg = np.zeros(v, dtype=np.int64)
-        cur = 0
-        for chunk in source.chunks():
-            s, d = ((chunk.dst, chunk.src) if transpose
-                    else (chunk.src, chunk.dst))
-            hi = cur + chunk.num_edges
-            psrc[cur:hi] = s
-            pdst[cur:hi] = d
-            for k in props:
-                props[k][cur:hi] = chunk.props[k]
-            out_deg += np.bincount(s, minlength=v)
-            cur = hi
-        if sort_by_dst:
-            order = stable_argsort(pdst[:e], dev)
-            psrc[:e] = psrc[:e][order]
-            pdst[:e] = pdst[:e][order]
-            for k in props:
-                props[k][:e] = props[k][:e][order]
-        out_deg = out_deg.astype(np.float32)
-        indptr, eidx, max_deg = csr_layout(psrc, mask, v + 1, dev)
-        bucket_id, sizes, max_degs = degree_buckets(
-            indptr, v + 1, bounds=tuple(bucket_bounds or
-                                        DEFAULT_BUCKET_BOUNDS))
-        arrays = {"src": psrc, "dst": pdst, "edge_mask": mask,
-                  "edge_props": props,
-                  "aux": {"out_degree": out_deg,
-                          "global_id": np.arange(v, dtype=np.float32)},
-                  "csr_indptr": indptr, "csr_eidx": eidx,
-                  "bucket_id": bucket_id}
-        statics = {"num_masters": v, "num_slots": v + 1,
-                   "edges_sorted_by_dst": sort_by_dst,
-                   "csr_max_deg": max_deg, "bucket_sizes": sizes,
-                   "bucket_max_deg": max_degs}
-        return DevicePartition.from_arrays(arrays, statics, device=dev)
+        with timed(spent, "fill"):
+            psrc = np.full(e_pad, v, dtype=np.int32)
+            pdst = np.full(e_pad, v, dtype=np.int32)
+            mask = np.zeros(e_pad, dtype=bool)
+            mask[:e] = True
+            props = {k: np.zeros(e_pad, dtype=dt)
+                     for k, dt in source.prop_dtypes.items()}
+            out_deg = np.zeros(v, dtype=np.int64)
+            cur = 0
+            for chunk in source.chunks():
+                s, d = ((chunk.dst, chunk.src) if transpose
+                        else (chunk.src, chunk.dst))
+                hi = cur + chunk.num_edges
+                psrc[cur:hi] = s
+                pdst[cur:hi] = d
+                for k in props:
+                    props[k][cur:hi] = chunk.props[k]
+                out_deg += np.bincount(s, minlength=v)
+                cur = hi
+            out_deg = out_deg.astype(np.float32)
+        with timed(spent, "sort_dst"):
+            if sort_by_dst:   # the sort ends in a host copy
+                order = stable_argsort(pdst[:e], dev)
+                psrc[:e] = psrc[:e][order]
+                pdst[:e] = pdst[:e][order]
+                for k in props:
+                    props[k][:e] = props[k][:e][order]
+        with timed(spent, "csr"):
+            indptr, eidx, max_deg = csr_layout(psrc, mask, v + 1, dev)
+            bucket_id, sizes, max_degs = degree_buckets(
+                indptr, v + 1, bounds=tuple(bucket_bounds or
+                                            DEFAULT_BUCKET_BOUNDS))
+        with timed(spent, "upload"):
+            arrays = {"src": psrc, "dst": pdst, "edge_mask": mask,
+                      "edge_props": props,
+                      "aux": {"out_degree": out_deg,
+                              "global_id": np.arange(v, dtype=np.float32)},
+                      "csr_indptr": indptr, "csr_eidx": eidx,
+                      "bucket_id": bucket_id}
+            statics = {"num_masters": v, "num_slots": v + 1,
+                       "edges_sorted_by_dst": sort_by_dst,
+                       "csr_max_deg": max_deg, "bucket_sizes": sizes,
+                       "bucket_max_deg": max_degs}
+            part = DevicePartition.from_arrays(arrays, statics, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        part.ingress_s = spent
+        return part
 
     def apply_edge_delta(self, delta, bucket_bounds: Optional[tuple] = None,
                          pad_multiple: int = 8):
@@ -527,6 +544,7 @@ class GREEngine:
         return hist
 
     # ------------------------------------------------------------------ init
+    @spanned("init_state")
     def init_state(self, part: DevicePartition, source=None,
                    lane_tracking: bool = False) -> EngineState:
         """`source` may be a single vertex id, or, for multi-source programs
@@ -682,20 +700,26 @@ class GREEngine:
         p = self.program
         eprop = (part.edge_props[p.needs_edge_prop]
                  if p.needs_edge_prop else None)
-        gathered = state.scatter_data.index_select(0, part.src)
-        msgs = p.scatter_msg(gathered, eprop)
-        if self.dense_frontier:
-            msgs = msgs.to(p.msg_dtype)
-        else:
-            live = state.active_scatter.index_select(0, part.src) \
-                & part.edge_mask
-            msgs = torch.where(_bcast(live, msgs), msgs.to(p.msg_dtype),
-                               p.monoid.identity)
-        return segment_combine(
-            msgs, part.dst, num_segments or part.num_slots, p.monoid,
-            indices_are_sorted=part.edges_sorted_by_dst, seg_ptr=part.seg_ptr)
+        with span("gather"):
+            gathered = state.scatter_data.index_select(0, part.src)
+            src_active = (None if self.dense_frontier else
+                          state.active_scatter.index_select(0, part.src))
+        with span("message"):
+            msgs = p.scatter_msg(gathered, eprop)
+            if src_active is None:
+                msgs = msgs.to(p.msg_dtype)
+            else:
+                live = src_active & part.edge_mask
+                msgs = torch.where(_bcast(live, msgs), msgs.to(p.msg_dtype),
+                                   p.monoid.identity)
+        with span("combine"):
+            return segment_combine(
+                msgs, part.dst, num_segments or part.num_slots, p.monoid,
+                indices_are_sorted=part.edges_sorted_by_dst,
+                seg_ptr=part.seg_ptr)
 
     # ------------------------------------------------------------------ apply
+    @spanned("apply")
     def apply(self, part: DevicePartition, state: EngineState,
               combined: torch.Tensor) -> EngineState:
         """Phase 2: fold combine_data into vertex_data; assert_to_halt.

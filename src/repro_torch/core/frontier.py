@@ -28,6 +28,10 @@ their out-edge totals (`frontier_counts`), all read in one transfer: dense
 above the total capacity (the density crossover), compacted below.  A
 bucket whose live members exceed `cap_b` degrades to a dense scan
 restricted to that bucket's sources; no vertex is ever dropped.
+
+The tile route opens the dense route's spans (`repro_torch.trace`): `gather`
+(the frontier, its edge tile and the rows it reads), `message` and
+`combine`; `frontier_counts` spans the counts and their host read.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch
 
 from repro_torch.core.vertex_program import segment_combine
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.trace import span, spanned
 
 if TYPE_CHECKING:  # pragma: no cover - typing only, avoids a cycle
     from repro_torch.core.engine import DevicePartition, EngineState
@@ -123,22 +128,25 @@ def frontier_tile(program: "VertexProgram", part: "DevicePartition",
     if max_deg is None:
         max_deg = part.csr_max_deg
     mask = state.active_scatter if frontier_mask is None else frontier_mask
-    frontier = torch.nonzero_static(mask, size=cap,
-                                    fill_value=slots).squeeze(1)
-    eid, valid = gather_frontier_edge_tile(part, frontier, cap, max_deg)
-    dst = torch.where(valid, part.dst[eid], num_segments)
-    # fill entries (== num_slots) lie past scatter_data: clamp the gather
-    # and give them the identity explicitly
-    gathered = state.scatter_data[torch.clamp(frontier, max=slots - 1)]
-    real = (frontier < slots).reshape((-1,) + (1,) * (gathered.dim() - 1))
-    gathered = torch.where(real, gathered, p.monoid.identity)
-    tile = gathered[:, None].expand((cap, max_deg) + tuple(gathered.shape[1:]))
-    flat = tile.reshape((cap * max_deg,) + tuple(gathered.shape[1:]))
-    eprop = (part.edge_props[p.needs_edge_prop][eid].reshape(-1)
-             if p.needs_edge_prop else None)
-    msgs = p.scatter_msg(flat, eprop)
-    vmask = valid.reshape((-1,) + (1,) * (msgs.dim() - 1))
-    msgs = torch.where(vmask, msgs.to(p.msg_dtype), p.monoid.identity)
+    with span("gather"):
+        frontier = torch.nonzero_static(mask, size=cap,
+                                        fill_value=slots).squeeze(1)
+        eid, valid = gather_frontier_edge_tile(part, frontier, cap, max_deg)
+        dst = torch.where(valid, part.dst[eid], num_segments)
+        # fill entries (== num_slots) lie past scatter_data: clamp the
+        # gather and give them the identity explicitly
+        gathered = state.scatter_data[torch.clamp(frontier, max=slots - 1)]
+        real = (frontier < slots).reshape((-1,) + (1,) * (gathered.dim() - 1))
+        gathered = torch.where(real, gathered, p.monoid.identity)
+        tile = gathered[:, None].expand((cap, max_deg)
+                                        + tuple(gathered.shape[1:]))
+        flat = tile.reshape((cap * max_deg,) + tuple(gathered.shape[1:]))
+        eprop = (part.edge_props[p.needs_edge_prop][eid].reshape(-1)
+                 if p.needs_edge_prop else None)
+    with span("message"):
+        msgs = p.scatter_msg(flat, eprop)
+        vmask = valid.reshape((-1,) + (1,) * (msgs.dim() - 1))
+        msgs = torch.where(vmask, msgs.to(p.msg_dtype), p.monoid.identity)
     return msgs, dst.reshape(-1)
 
 
@@ -163,8 +171,10 @@ def compact_scatter_combine(program: "VertexProgram", part: "DevicePartition",
     """
     msgs, dst = frontier_tile(program, part, state, num_segments, cap,
                               max_deg, frontier_mask)
-    return kernel_ops.tile_segment_combine(msgs, dst, num_segments,
-                                           program.monoid.name, live_edges)
+    with span("combine"):
+        return kernel_ops.tile_segment_combine(msgs, dst, num_segments,
+                                               program.monoid.name,
+                                               live_edges)
 
 
 def dense_masked_combine(program: "VertexProgram", part: "DevicePartition",
@@ -175,14 +185,18 @@ def dense_masked_combine(program: "VertexProgram", part: "DevicePartition",
     p = program
     eprop = (part.edge_props[p.needs_edge_prop]
              if p.needs_edge_prop else None)
-    gathered = state.scatter_data.index_select(0, part.src)
-    msgs = p.scatter_msg(gathered, eprop)
-    live = src_mask.index_select(0, part.src) & part.edge_mask
-    live = live.reshape(live.shape + (1,) * (msgs.dim() - live.dim()))
-    msgs = torch.where(live, msgs.to(p.msg_dtype), p.monoid.identity)
-    return segment_combine(msgs, part.dst, num_segments, p.monoid,
-                           indices_are_sorted=part.edges_sorted_by_dst,
-                           seg_ptr=part.seg_ptr)
+    with span("gather"):
+        gathered = state.scatter_data.index_select(0, part.src)
+        src_live = src_mask.index_select(0, part.src)
+    with span("message"):
+        msgs = p.scatter_msg(gathered, eprop)
+        live = src_live & part.edge_mask
+        live = live.reshape(live.shape + (1,) * (msgs.dim() - live.dim()))
+        msgs = torch.where(live, msgs.to(p.msg_dtype), p.monoid.identity)
+    with span("combine"):
+        return segment_combine(msgs, part.dst, num_segments, p.monoid,
+                               indices_are_sorted=part.edges_sorted_by_dst,
+                               seg_ptr=part.seg_ptr)
 
 
 class FrontierCounts(NamedTuple):
@@ -196,6 +210,7 @@ class FrontierCounts(NamedTuple):
     bucket_edges: tuple
 
 
+@spanned("frontier_counts")
 def frontier_counts(part: "DevicePartition",
                     active: torch.Tensor) -> FrontierCounts:
     """Live slots and their out-edge totals, overall and per bucket (none

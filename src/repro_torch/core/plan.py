@@ -13,12 +13,14 @@ stage here: the route follows the tensors' device
 plans round-trip through a plan cache (`repro_torch.tuning`) written by
 either package; on the port the kernel stage selects nothing.
 
-`execute_plan` is the BSP loop, an eager Python loop with the shape of the
-JAX package's `lax.while_loop`: the first phase runs before the loop under
-the continuation predicate, and each iteration is merge → apply → predicate
-→ phase.  So `step` counts applies exactly as there, including the
-`max_steps` cut and the empty-frontier case where no superstep runs.  The
-predicate is one host read per superstep.
+`execute_plan` is the BSP loop, an eager Python loop that takes the JAX
+package's `lax.while_loop` apart superstep by superstep: while the
+continuation predicate holds, phase → merge → apply.  So `step` counts
+applies exactly as there, including the `max_steps` cut and the
+empty-frontier case where no superstep runs.  The predicate is one host
+read per superstep (`HOST_READS["halt_test"]`), none where `max_steps`
+cuts the loop.  The loop opens the spans `run`, `superstep` (one an
+apply), `scatter_combine` and `halt_test` (`repro_torch.trace`).
 """
 from __future__ import annotations
 
@@ -27,10 +29,17 @@ from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import torch
 
+from repro_torch.trace import span
+
 if TYPE_CHECKING:  # pragma: no cover - typing only, avoids a cycle
     from repro_torch.core.engine import DevicePartition, EngineState, GREEngine
 
 PHASES = ("sync", "pipelined", "async")
+
+# Host reads of the halt test (one `keep_going` that reads the device each,
+# a distributed run's `any_active` included); reset by callers that count a
+# run.
+HOST_READS = {"halt_test": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,13 +200,22 @@ class SuperstepPlan:
             dense_fn=lambda: engine.dense_scatter_combine(part, state, nseg))
 
 
+def _superstep(engine: "GREEngine", part: "DevicePartition",
+               state: "EngineState", exchange, carry) -> tuple:
+    """refresh → local phase → merge → apply; returns the new state and the
+    local phase's carry."""
+    with span("superstep"):
+        state = exchange.refresh(state)
+        with span("scatter_combine"):
+            carry = exchange.local_phase(engine, part, state, carry)
+        return engine.apply(part, state, exchange.merge(carry)), carry
+
+
 def execute_superstep(engine: "GREEngine", part: "DevicePartition",
                       state: "EngineState", exchange) -> "EngineState":
     """ONE superstep through the phase protocol: refresh → local_phase →
     merge → apply."""
-    state = exchange.refresh(state)
-    carry = exchange.local_phase(engine, part, state)
-    return engine.apply(part, state, exchange.merge(carry))
+    return _superstep(engine, part, state, exchange, None)[0]
 
 
 def execute_plan(engine: "GREEngine", part: "DevicePartition",
@@ -221,23 +239,16 @@ def execute_plan(engine: "GREEngine", part: "DevicePartition",
     def keep_going(s, carry) -> bool:
         if s.step >= max_steps:
             return False
-        local = s.active_scatter.any()
-        held = pending(carry)
-        if held is not False:
-            local = local | held
-        return globalize(local)
+        with span("halt_test"):
+            local = s.active_scatter.any()
+            held = pending(carry)
+            if held is not False:
+                local = local | held
+            HOST_READS["halt_test"] += 1
+            return globalize(local)
 
-    def phase(s, carry):
-        s = exchange.refresh(s)
-        return s, exchange.local_phase(engine, part, s, carry)
-
-    carry = exchange.carry_init(engine, part)
-    go = keep_going(state, carry)
-    if go:
-        state, carry = phase(state, carry)
-    while go:
-        state = engine.apply(part, state, exchange.merge(carry))
-        go = keep_going(state, carry)
-        if go:
-            state, carry = phase(state, carry)
+    with span("run"):
+        carry = exchange.carry_init(engine, part)
+        while keep_going(state, carry):
+            state, carry = _superstep(engine, part, state, exchange, carry)
     return state
