@@ -2,11 +2,13 @@
 """Smoke test of the PyTorch port (`src/repro_torch`) on one NVIDIA card.
 
   python3 chip_smoke.py [--scale 22] [--reps 10]
+  python3 chip_smoke.py --gather-only --scale 24
 
 1. Starts the distributed phase's host ingress in a child process (step
-   3b), prints the card's name and power limit and builds the four CUDA
+   3b), prints the card's name and power limit and builds the five CUDA
    sources from `src/repro_torch/kernels/csrc/` (the combine,
-   flash-attention forward and backward, EmbeddingBag) with `nvcc`
+   flash-attention forward and backward, EmbeddingBag, the gather-message
+   kernel) with `nvcc`
    (sm_90a), one `nvcc` per source, all started together.  Every phase ends with a
    `phase_s <name>=<seconds>` line, and the run with one `phase_s` JSON
    line of them all.
@@ -42,6 +44,23 @@
    counts that, and the compaction's `bound_ms` is that read plus 8 bytes
    written per valid lane.  `library_ms` is one `torch.segment_reduce`
    call on the same inputs, a yardstick only (the compaction has none).
+2a. The gather-message kernel (`csrc/gather_messages.cu`, the dense
+   scan's messages; `gather_messages_phase`): every form with and without
+   activity on small random columns, aligned and shifted by one element,
+   bitwise against the plain version; then at the partition's shape
+   PageRank's copy and SSSP's weight add with activity (a mid-run state,
+   and a random 30% of the slots active): the messages bitwise equal to
+   today's route (`index_select`, `scatter_msg`, mask, `where`), to a
+   second launch and to the plain version, and the engine's combine
+   bitwise equal to today's; its time, bound (bytes over 3.35 TB/s), the
+   plain version's time and today's route's as the library's
+   (`gather_messages_case` lines); then whole PageRank and SSSP runs, one
+   launch a superstep of the dense plan.  `--gather-only` runs only this
+   step, on the benchmark's graph (`portbench/configs/graph500-s24.json`)
+   at `--scale`, and adds the kernel's and today's route's device times
+   (profiler), which the whole run leaves to the phases that had it, and
+   `gather_skew_phase`: the kernel, ranked and not, against today's route
+   on a column without skew (uniform sources) beside the R-MAT column.
 3. Drives the graph path through the port's entry points
    (`DevicePartition.from_graph`, `GREEngine`, `init_state`, `run`):
    PageRank (30 supersteps), SSSP (frontier "auto"), BFS (frontier
@@ -390,6 +409,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import pickle
@@ -742,6 +762,243 @@ def adversarial_phase():
     torch.cuda.synchronize()
     log(f"adversarial_cases_held={held}")
     return held
+
+
+# ------------------------------------------------- gather-message kernel
+GATHER_SOURCE = "src/repro_torch/kernels/csrc/gather_messages.cu"
+GATHER_EDGE_SIZES = (1, 3, 4, 4097, 1_000_003)
+
+
+def bitwise_equal(a, b) -> bool:
+    """Same shape and the same float32 bits (NaN and the infinities too)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def todays_messages(eng, part, state):
+    """The dense route's messages before the gather-message kernel:
+    `index_select` of the values (and of the activity), the program's
+    `scatter_msg`, the mask and the select, as separate operations."""
+    p = eng.program
+    eprop = (part.edge_props[p.needs_edge_prop] if p.needs_edge_prop
+             else None)
+    msgs = p.scatter_msg(state.scatter_data.index_select(0, part.src),
+                         eprop).to(p.msg_dtype)
+    if eng.dense_frontier:
+        return msgs
+    live = state.active_scatter.index_select(0, part.src) & part.edge_mask
+    return torch.where(live, msgs, p.monoid.identity)
+
+
+def gather_args(eng, part, state) -> dict:
+    p = eng.program
+    dense = eng.dense_frontier
+    return {"x": state.scatter_data, "src": part.src, "form": p.message,
+            "prop": (part.edge_props[p.needs_edge_prop]
+                     if p.message == "add_prop" else None),
+            "active": None if dense else state.active_scatter,
+            "edge_mask": None if dense else part.edge_mask,
+            "identity": p.monoid.identity, "ranking": part.source_ranking()}
+
+
+def gather_edge_cases():
+    """Every form, with and without activity, on random columns of
+    GATHER_EDGE_SIZES edges, aligned and shifted by one element (the
+    one-edge-at-a-time walk), held bitwise against the plain version."""
+    from repro_torch.kernels import gather_messages as gm
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    held = 0
+    slots = 1 << 16
+    x = torch.rand(slots, generator=gen, device="cuda") * 100.0
+    x[torch.rand(slots, generator=gen, device="cuda") < 0.2] = math.inf
+    act = torch.rand(slots, generator=gen, device="cuda") < 0.3
+    for e in GATHER_EDGE_SIZES:
+        src = torch.randint(0, slots, (e + 1,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        prop = torch.rand(e + 1, generator=gen, device="cuda") * 65535.0
+        mask = torch.rand(e + 1, generator=gen, device="cuda") < 0.9
+        for shift in (0, 1):
+            cols = {"src": src[shift:shift + e],
+                    "prop": prop[shift:shift + e],
+                    "edge_mask": mask[shift:shift + e]}
+            ranking = gm.rank_sources(cols["src"], slots)
+            for form, activity in itertools.product(gm.FORMS,
+                                                    (False, True)):
+                args = {"x": x, "src": cols["src"], "form": form,
+                        "prop": cols["prop"], "identity": math.inf,
+                        "active": act if activity else None,
+                        "edge_mask": cols["edge_mask"] if activity else None}
+                got = gm.gather_messages_cuda(**args, ranking=ranking)
+                if not bitwise_equal(got, gm.gather_messages_plain(**args)):
+                    raise AssertionError(
+                        f"gather_messages E={e} shift={shift} form={form} "
+                        f"activity={activity}: not bitwise equal to the "
+                        "plain version")
+                held += 1
+    torch.cuda.synchronize()
+    log(f"gather_edge_cases_held={held}")
+    return held
+
+
+def gather_messages_phase(part, key, reps, profile=True):
+    """The gather-message kernel at the partition's shape: PageRank's copy
+    (values after 3 supersteps, dense frontier) and SSSP's weight add with
+    activity (the state after 4 supersteps from `key`, then a random 30%
+    of the slots active).  Each case: the kernel's messages bitwise equal
+    to today's route (`todays_messages`), to a second launch and to the
+    plain version, and the engine's `dense_scatter_combine` bitwise equal
+    to the combine of today's messages; then the kernel's time (CUDA
+    events, median of `reps`), its device time (profiler), its bound
+    (`message_bytes` over 3.35 TB/s), the plain version's time and today's
+    route's time and device time as the library's (the device times only
+    with `profile`).  Then whole PageRank and SSSP runs, one launch a
+    superstep where the plan is the dense scan."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.engine import GREEngine
+    from repro_torch.core.vertex_program import segment_combine
+    from repro_torch.kernels import gather_messages as gm
+    held = gather_edge_cases()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part.source_ranking()
+    torch.cuda.synchronize()
+    log(f"gather_messages_ranking_s={time.perf_counter() - t0:.3f} "
+        f"ranked_slots={part.src_ranking.order.shape[0]}")
+    pr = GREEngine(algorithms.pagerank_program())
+    ss = GREEngine(algorithms.sssp_program())
+    st_pr = pr.init_state(part)
+    for _ in range(3):
+        st_pr = pr.superstep(part, st_pr)
+    st_ss = ss.init_state(part, source=key)
+    for _ in range(4):
+        st_ss = ss.superstep(part, st_ss)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rand_active = torch.rand(part.num_slots, generator=gen,
+                             device="cuda") < 0.3
+    cases = (("pagerank", pr, st_pr), ("sssp_step4", ss, st_ss),
+             ("sssp_random30", ss, dataclasses.replace(
+                 st_ss, active_scatter=rand_active)))
+    e, v = part.src.shape[0], part.num_slots
+    records = []
+    for name, eng, state in cases:
+        p = eng.program
+        args = gather_args(eng, part, state)
+        plain_args = {k: a for k, a in args.items() if k != "ranking"}
+        got = gm.gather_messages_cuda(**args)
+        want = todays_messages(eng, part, state)
+        for other, what in (
+                (gm.gather_messages_cuda(**args), "a second launch"),
+                (want, "today's route"),
+                (gm.gather_messages_plain(**plain_args), "the plain version")):
+            if not bitwise_equal(got, other):
+                raise AssertionError(f"gather_messages {name}: not bitwise "
+                                     f"equal to {what}")
+        out = eng.dense_scatter_combine(part, state)
+        ref = segment_combine(want, part.dst, v, p.monoid,
+                              indices_are_sorted=True, seg_ptr=part.seg_ptr)
+        if not bitwise_equal(out, ref):
+            raise AssertionError(f"gather_messages {name}: the engine's "
+                                 "combine differs from today's route's")
+        del got, want, out, ref
+        held += 1
+        live = (int((state.active_scatter.index_select(0, part.src)
+                     & part.edge_mask).sum()) if args["active"] is not None
+                else e)
+        rec = {"case": name, "form": p.message, "E": e, "slots": v,
+               "live_edges": live,
+               "ms": cuda_ms(lambda: gm.gather_messages_cuda(**args), reps),
+               "bound_ms": gm.message_bytes(
+                   e, v, p.message, args["active"] is not None)
+               / HBM_BYTES_PER_S * 1e3,
+               "plain_ms": cuda_ms(
+                   lambda: gm.gather_messages_plain(**plain_args), reps),
+               "library_ms": cuda_ms(
+                   lambda: todays_messages(eng, part, state), reps)}
+        if profile:
+            rec["device_ms"], rec["device_kernels"] = device_ms(
+                lambda: gm.gather_messages_cuda(**args), reps)
+            rec["library_device_ms"] = device_ms(
+                lambda: todays_messages(eng, part, state), reps)[0]
+        log("gather_messages_case", json.dumps(rec))
+        records.append(rec)
+    launches = {}
+    for name, eng, kw, steps in (("pagerank", pr, {}, 30),
+                                 ("sssp", ss, {"source": key}, 100000)):
+        gm.reset_launches()
+        out = eng.run(part, eng.init_state(part, **kw), steps)
+        torch.cuda.synchronize()
+        n = sum(gm.LAUNCHES.values())
+        dense = eng.make_plan().frontier(part).kind == "dense"
+        if (n != out.step) if dense else n > out.step:
+            raise AssertionError(f"gather_messages {name}: {n} launches "
+                                 f"in {out.step} supersteps")
+        launches[name] = {"launches": n, "supersteps": out.step,
+                          "dense_plan": dense}
+    log(f"gather_messages_launches={json.dumps(launches)} "
+        f"gather_messages_held={held}")
+    return records, launches
+
+
+def gather_skew_phase(part, reps):
+    """The kernel on a graph without skew, beside the partition's own
+    R-MAT column: a column of the partition's length whose sources are drawn
+    uniformly from its vertices (what a dst-sorted column of a uniform
+    random graph with the same V and E reads).  Each column: the share of
+    its edges that read the rows a CTA holds in shared memory (the first
+    192 KB of the ranked table), and the times (CUDA events, median of
+    `reps`) of the kernel as the engine runs it (ranked by reads), of the
+    kernel on the slots' own order (`order` every slot, `rank_of_src` the
+    column itself: no ranking), and of today's route, for PageRank's copy
+    and SSSP's weight add with a random 30% of the slots active.  The
+    three outputs must be bitwise equal.  `gather_skew` lines."""
+    from repro_torch.kernels import gather_messages as gm
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    v, e = part.num_slots, part.src.shape[0]
+    x = torch.rand(v, generator=gen, device="cuda") * 100.0
+    active = torch.rand(v, generator=gen, device="cuda") < 0.3
+    every_slot = torch.arange(v, dtype=torch.int32, device="cuda")
+    columns = {"rmat": part.src,
+               "uniform": torch.randint(0, part.num_masters, (e,),
+                                        generator=gen, device="cuda",
+                                        dtype=torch.int32)}
+    out = {}
+    for graph, src in columns.items():
+        counts = torch.bincount(src, minlength=v)
+        top = torch.sort(counts, descending=True).values.cumsum(0)
+        rankings = {"ranked": gm.rank_sources(src, v),
+                    "slot_order": gm.SourceRanking(src, every_slot, src)}
+        rec = {"graph": graph, "E": e, "slots": v,
+               "read_slots": int((counts > 0).sum()),
+               # the shared rows: 4-byte rows without activity, 8 with
+               "hot_share_copy": int(top[min(v, 192 * 1024 // 4) - 1]) / e,
+               "hot_share_activity": int(top[min(v, 192 * 1024 // 8) - 1])
+               / e}
+        del counts, top
+        for case, form, act in (("pagerank", "copy", False),
+                                ("sssp_random30", "add_prop", True)):
+            args = {"x": x, "src": src, "form": form,
+                    "prop": part.edge_props["weight"],
+                    "active": active if act else None,
+                    "edge_mask": part.edge_mask if act else None,
+                    "identity": math.inf if act else 0.0}
+            want = gm.gather_messages_plain(**args)
+            for how, r in rankings.items():
+                if not bitwise_equal(gm.gather_messages_cuda(**args,
+                                                             ranking=r),
+                                     want):
+                    raise AssertionError(f"gather_skew {graph} {case} {how}:"
+                                         " not bitwise equal to today's "
+                                         "route")
+                rec[f"{case}_{how}_ms"] = cuda_ms(
+                    lambda: gm.gather_messages_cuda(**args, ranking=r), reps)
+            del want
+            rec[f"{case}_today_ms"] = cuda_ms(
+                lambda: gm.gather_messages_plain(**args), reps)
+        log("gather_skew", json.dumps(rec))
+        out[graph] = rec
+        del rankings
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------- main path
@@ -5169,6 +5426,9 @@ def main() -> int:
                     help="log2 |V| of the R-MAT graph (<= 24: CC labels and "
                          "SSSP sums are exact in f32 below 2**24)")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--gather-only", action="store_true",
+                    help="only the gather-message kernel, on the "
+                         "benchmark's graph at --scale")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -5180,6 +5440,8 @@ def main() -> int:
         return 1
     if args.scale > 24:
         raise SystemExit("--scale must be <= 24")
+    if args.gather_only:
+        return gather_only(args)
     # the distributed phase's host ingress runs beside the phases before it
     ingress = start_dist_ingress(args.scale, DIST_K)
     try:
@@ -5187,6 +5449,60 @@ def main() -> int:
             return run_phases(args, ingress, Path(tmp))
     finally:
         stop_dist_ingress(ingress)
+
+
+def gather_only(args) -> int:
+    """`--gather-only`: the gather-message phase on the benchmark's graph
+    (`portbench/configs/graph500-s24.json`'s R-MAT at `--scale`, the
+    vertex permutation of seed 0), its first search key as SSSP's root."""
+    from repro_torch.core.engine import DevicePartition
+    from repro_torch.graph.structures import Graph
+    from repro_torch.kernels import _build
+    sys.path.insert(0, str(ROOT))
+    from portbench.inputs import rmat
+    smi = nvidia_smi_line()
+    log("device:", torch.cuda.get_device_name(0), "|", smi)
+    log("torch", torch.__version__, "cuda", torch.version.cuda)
+    with phase("build"):
+        names = ("gather_messages", "segment_combine")
+        with ThreadPoolExecutor(len(names)) as pool:
+            list(pool.map(_build.load, names))
+    with phase("inputs"):
+        conf = json.loads((ROOT / "portbench" / "configs" /
+                           "graph500-s24.json").read_text())
+        edges, keys = rmat.make_graph(dict(conf["graph"], scale=args.scale),
+                                      0, "cuda")
+        torch.cuda.empty_cache()
+        part = DevicePartition.from_graph(
+            Graph(edges.num_vertices, edges.src, edges.dst,
+                  {"weight": edges.weight}), device="cuda")
+        del edges
+        log(f"V={part.num_masters} E={int(part.edge_mask.sum())} "
+            f"E_pad={part.src.shape[0]}")
+    with phase("gather_messages"):
+        records, paths = gather_messages_phase(part, int(keys[0]),
+                                               args.reps)
+    with phase("gather_skew"):
+        gather_skew_phase(part, args.reps)
+    log(json.dumps({"kernels": [gather_record(records, paths)]}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def gather_record(records, path_launches, launches=None) -> dict:
+    """The kernel's record: `launches` a form on the main path (None in
+    `--gather-only`, which runs no main path), `path_launches` those of
+    `gather_messages_phase`'s own PageRank and SSSP runs."""
+    rec = records[0]                   # PageRank's copy
+    return {"name": "gather_messages", "route": "cuda",
+            "source": GATHER_SOURCE, "replaces": None,
+            "launches": launches, "path_launches": path_launches,
+            "cases": records, "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": "bytes", "library_ms": rec["library_ms"]}
 
 
 PHASE_S = {}
@@ -5205,6 +5521,7 @@ def phase(name):
 
 def run_phases(args, ingress, cache_dir) -> int:
     from repro_torch.kernels import _build
+    from repro_torch.kernels import gather_messages as gm
     from repro_torch.kernels import segment_combine as sc
 
     from repro_torch.kernels import flash_attention as fa
@@ -5220,7 +5537,7 @@ def run_phases(args, ingress, cache_dir) -> int:
 
     with phase("build"):
         names = ("segment_combine", "flash_attention", "embedding_bag",
-                 "flash_attention_bwd")
+                 "flash_attention_bwd", "gather_messages")
         with ThreadPoolExecutor(len(names)) as pool:   # one nvcc a source
             list(pool.map(_build.load, names))
 
@@ -5234,6 +5551,12 @@ def run_phases(args, ingress, cache_dir) -> int:
         torch.cuda.empty_cache()
         adversarial_phase()
         torch.cuda.empty_cache()
+    with phase("gather_messages"):
+        # device times come from `--gather-only`: this run leaves the
+        # profiler to the phases below
+        gather_records, gather_paths = gather_messages_phase(
+            part, source, args.reps, profile=False)
+        torch.cuda.empty_cache()
 
     with phase("main_path"):
         # one untimed pass first, so the timed pass reads the steady
@@ -5243,14 +5566,17 @@ def run_phases(args, ingress, cache_dir) -> int:
         log("main_path timed pass:")
         torch.cuda.reset_peak_memory_stats()
         sc.reset_launches()
+        gm.reset_launches()
         t0 = time.perf_counter()
         runs, multi, single0 = main_path(graph, part, upart, source,
                                          sources, ref)
         launches = dict(sc.LAUNCHES)
+        gather = gather_record(gather_records, gather_paths,
+                               dict(gm.LAUNCHES))
         log(f"main_path_s={time.perf_counter() - t0:.3f} "
-            f"launches={launches} "
+            f"launches={launches} gather_launches={gather['launches']} "
             f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
-        for route, n in launches.items():
+        for route, n in {**launches, **gather["launches"]}.items():
             if n <= 0:
                 raise AssertionError(f"the {route} route launched no "
                                      "kernel")
@@ -5404,6 +5730,7 @@ def run_phases(args, ingress, cache_dir) -> int:
                                   if r == ("dense" if route == "dense"
                                            else "tile"))})
     kernels.append(emb)
+    kernels.append(gather)
     rec = attn[0]                      # smollm-135m's prefill shape
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,

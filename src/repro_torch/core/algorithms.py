@@ -5,12 +5,14 @@ Each is a direct transcription of the paper's Scatter-Combine code into the
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 
 from repro_torch.core.vertex_program import MONOIDS, VertexProgram
+from repro_torch.kernels import gather_messages
 
 DAMPING = 0.85
 
@@ -23,6 +25,15 @@ def _full(shape, value, aux, dtype=torch.float32):
     return torch.full(shape, value, dtype=dtype, device=_device(aux))
 
 
+def _declared(form: str) -> dict:
+    """A program's `message` form and the `scatter_msg` it defines
+    (`kernels.gather_messages.form_messages`, `[E]` or `[E, D]`): one
+    declaration, so the dense scan's kernel and every other route form the
+    same message."""
+    return {"message": form, "scatter_msg": functools.partial(
+        gather_messages.form_messages, form)}
+
+
 def pagerank_program() -> VertexProgram:
     """Paper Fig. 3a / Eq. 6.
 
@@ -30,10 +41,8 @@ def pagerank_program() -> VertexProgram:
     combine: pr_combine[dst] += msg        (⊕ = sum)
     apply:   pr = 0.15 + 0.85 * pr_combine; reset accumulator.
     Iterative: every vertex stays active; run a fixed number of supersteps.
+    The message is a copy: scatter_data already holds pr/outdeg.
     """
-
-    def scatter_msg(src_scatter, _eprop):
-        return src_scatter  # scatter_data already holds pr/outdeg
 
     def apply_fn(vertex_data, combined, aux):
         pr = (1.0 - DAMPING) + DAMPING * combined
@@ -41,8 +50,8 @@ def pagerank_program() -> VertexProgram:
         return pr, pr / outdeg, torch.ones_like(pr, dtype=torch.bool)
 
     return VertexProgram(
-        name="pagerank", monoid=MONOIDS["sum"],
-        scatter_msg=scatter_msg, apply_fn=apply_fn,
+        name="pagerank", monoid=MONOIDS["sum"], **_declared("copy"),
+        apply_fn=apply_fn,
         init_vertex_data=lambda n, aux: _full((n,), 1.0, aux),
         # First superstep scatters pr0/outdeg = 1/outdeg (paper Eq. 6a).
         init_scatter_data=lambda n, aux: 1.0 / torch.clamp(
@@ -69,9 +78,6 @@ def sssp_program(num_sources: Optional[int] = None) -> VertexProgram:
     """
     D = num_sources
 
-    def scatter_msg(src_scatter, weight):
-        return src_scatter + (weight if D is None else weight[:, None])
-
     def combine_activates(old_vd, combined):
         improved = combined < old_vd  # strictly improving messages only
         return improved if D is None else improved.any(dim=-1)
@@ -83,7 +89,7 @@ def sssp_program(num_sources: Optional[int] = None) -> VertexProgram:
 
     return VertexProgram(
         name="sssp" if D is None else f"sssp_x{D}", monoid=MONOIDS["min"],
-        scatter_msg=scatter_msg, apply_fn=apply_fn,
+        **_declared("add_prop"), apply_fn=apply_fn,
         init_vertex_data=lambda n, aux: _full(_traversal_shape(n, D),
                                               math.inf, aux),
         init_scatter_data=lambda n, aux: _full(_traversal_shape(n, D),
@@ -103,9 +109,6 @@ def cc_program() -> VertexProgram:
     propagate by min-combine until no label changes.
     """
 
-    def scatter_msg(src_scatter, _eprop):
-        return src_scatter
-
     def combine_activates(old_vd, combined):
         return combined < old_vd
 
@@ -120,8 +123,8 @@ def cc_program() -> VertexProgram:
         return torch.arange(n, dtype=torch.float32, device=_device(aux))
 
     return VertexProgram(
-        name="cc", monoid=MONOIDS["min"],
-        scatter_msg=scatter_msg, apply_fn=apply_fn,
+        name="cc", monoid=MONOIDS["min"], **_declared("copy"),
+        apply_fn=apply_fn,
         init_vertex_data=init_labels,
         init_scatter_data=init_labels,
         init_active=lambda n, aux: _full((n,), True, aux, torch.bool),
@@ -138,9 +141,6 @@ def bfs_program(num_sources: Optional[int] = None) -> VertexProgram:
     """
     D = num_sources
 
-    def scatter_msg(src_scatter, _eprop):
-        return src_scatter + 1.0
-
     def combine_activates(old_vd, combined):
         improved = combined < old_vd
         return improved if D is None else improved.any(dim=-1)
@@ -152,7 +152,7 @@ def bfs_program(num_sources: Optional[int] = None) -> VertexProgram:
 
     return VertexProgram(
         name="bfs" if D is None else f"bfs_x{D}", monoid=MONOIDS["min"],
-        scatter_msg=scatter_msg, apply_fn=apply_fn,
+        **_declared("add_one"), apply_fn=apply_fn,
         init_vertex_data=lambda n, aux: _full(_traversal_shape(n, D),
                                               math.inf, aux),
         init_scatter_data=lambda n, aux: _full(_traversal_shape(n, D),
@@ -189,9 +189,6 @@ def ppr_push_program(num_sources: int, alpha: float = 0.15,
     """
     D = num_sources
 
-    def scatter_msg(src_scatter, _eprop):
-        return src_scatter  # scatter_data already holds (1-α)·r/outdeg
-
     def combine_activates(_old_vd, combined):
         return (combined > 0.0).any(dim=-1)  # received any mass
 
@@ -220,7 +217,9 @@ def ppr_push_program(num_sources: int, alpha: float = 0.15,
 
     return VertexProgram(
         name=f"ppr_x{D}", monoid=MONOIDS["sum"],
-        scatter_msg=scatter_msg, apply_fn=apply_fn,
+        # a copy: scatter_data already holds (1-α)·r/outdeg
+        **_declared("copy"),
+        apply_fn=apply_fn,
         init_vertex_data=lambda n, aux: _full((n, D, 2), 0.0, aux),
         init_scatter_data=lambda n, aux: _full((n, D), 0.0, aux),
         init_active=lambda n, aux: _full((n,), False, aux, torch.bool),
@@ -242,9 +241,7 @@ def gnn_aggregate_program(d_feat: int,
     the engine gives full-batch GNN aggregation the engine's combine kernel.
     """
 
-    def scatter_msg(src_scatter, edge_norm):
-        if edge_norm is None:
-            return src_scatter
+    def weighted_msg(src_scatter, edge_norm):
         return src_scatter * edge_norm[:, None]
 
     def apply_fn(vertex_data, combined, _aux):
@@ -253,7 +250,9 @@ def gnn_aggregate_program(d_feat: int,
 
     return VertexProgram(
         name="gnn_aggregate", monoid=MONOIDS["sum"],
-        scatter_msg=scatter_msg, apply_fn=apply_fn,
+        **({"scatter_msg": weighted_msg} if edge_weighted
+           else _declared("copy")),
+        apply_fn=apply_fn,
         init_vertex_data=lambda n, aux: _full((n, d_feat), 0.0, aux),
         init_scatter_data=lambda n, aux: _full((n, d_feat), 0.0, aux),
         init_active=lambda n, aux: _full((n,), True, aux, torch.bool),

@@ -39,6 +39,7 @@ from repro_torch.graph.structures import (DEFAULT_BUCKET_BOUNDS,
                                           degree_buckets, merge_order,
                                           stable_argsort,
                                           validate_edge_delta)
+from repro_torch.kernels import gather_messages
 from repro_torch.kernels.segment_combine import segment_row_pointer
 from repro_torch.trace import span, spanned, timed
 
@@ -100,10 +101,23 @@ class DevicePartition:
     shards: int = 1
     device: Optional[torch.device] = None
     ingress_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # The dense scan's ranking of the slots its edges read
+    # (`kernels.gather_messages.rank_sources`): built at the first scan on
+    # the card that reads it, kept while `src` is the column it ranks.
+    src_ranking: Optional[gather_messages.SourceRanking] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def __post_init__(self):
         if self.device is None:
             raise ValueError("DevicePartition needs its `device`")
+
+    def source_ranking(self) -> gather_messages.SourceRanking:
+        """`src_ranking`, built (again) where it does not rank `src`."""
+        r = self.src_ranking
+        if r is None or r.src is not self.src:
+            r = self.src_ranking = gather_messages.rank_sources(
+                self.src, self.num_slots)
+        return r
 
     def master_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The master rows of `x`, whose rows are `shards` equal blocks
@@ -382,6 +396,22 @@ class EngineState:
 def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """Reshape a `[n]` mask to broadcast against `[n, *payload]`."""
     return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
+
+
+def _message_form(p: VertexProgram, scatter_data: torch.Tensor,
+                  eprop: Optional[torch.Tensor]) -> Optional[str]:
+    """The gather-message kernel's form for the dense scan, or None where
+    the scan keeps its tensor operations: a payload, an undeclared
+    message, other than float32 values, or a gradient wanted."""
+    form = p.message
+    if (form is None or p.payload_shape != () or p.msg_dtype != torch.float32
+            or scatter_data.dtype != torch.float32
+            or scatter_data.requires_grad):
+        return None
+    if form == "add_prop" and (eprop is None or eprop.dtype != torch.float32
+                               or eprop.requires_grad):
+        return None
+    return form
 
 
 class GREEngine:
@@ -696,22 +726,42 @@ class GREEngine:
     def dense_scatter_combine(self, part: DevicePartition, state: EngineState,
                               num_segments: Optional[int] = None
                               ) -> torch.Tensor:
-        """The dense strategy: scan every edge, mask inactive sources."""
+        """The dense strategy: scan every edge, mask inactive sources.
+
+        A scalar program that declares its message form
+        (`VertexProgram.message`) takes the gather-message kernel, one pass
+        that writes every edge's message (`kernels.gather_messages`; the
+        plain version on the CPU); any other program gathers, forms, masks
+        and selects in separate tensor operations."""
         p = self.program
         eprop = (part.edge_props[p.needs_edge_prop]
                  if p.needs_edge_prop else None)
-        with span("gather"):
-            gathered = state.scatter_data.index_select(0, part.src)
-            src_active = (None if self.dense_frontier else
-                          state.active_scatter.index_select(0, part.src))
-        with span("message"):
-            msgs = p.scatter_msg(gathered, eprop)
-            if src_active is None:
-                msgs = msgs.to(p.msg_dtype)
-            else:
-                live = src_active & part.edge_mask
-                msgs = torch.where(_bcast(live, msgs), msgs.to(p.msg_dtype),
-                                   p.monoid.identity)
+        form = _message_form(p, state.scatter_data, eprop)
+        if form is not None:
+            active = None if self.dense_frontier else state.active_scatter
+            with span("gather"):
+                ranking = (part.source_ranking()
+                           if gather_messages.reads_ranking(part.src)
+                           else None)
+                msgs = gather_messages.gather_messages(
+                    state.scatter_data, part.src, form, prop=eprop,
+                    active=active,
+                    edge_mask=None if active is None else part.edge_mask,
+                    identity=p.monoid.identity, ranking=ranking)
+        else:
+            with span("gather"):
+                gathered = state.scatter_data.index_select(0, part.src)
+                src_active = (None if self.dense_frontier else
+                              state.active_scatter.index_select(0, part.src))
+            with span("message"):
+                msgs = p.scatter_msg(gathered, eprop)
+                if src_active is None:
+                    msgs = msgs.to(p.msg_dtype)
+                else:
+                    live = src_active & part.edge_mask
+                    msgs = torch.where(_bcast(live, msgs),
+                                       msgs.to(p.msg_dtype),
+                                       p.monoid.identity)
         with span("combine"):
             return segment_combine(
                 msgs, part.dst, num_segments or part.num_slots, p.monoid,

@@ -145,6 +145,14 @@ class VertexProgram:
     # Removal-invalidation policy for warm-started re-convergence
     # ("path", "component" or None).
     invalidation: Optional[str] = None
+    # What `scatter_msg` computes, where it is one of the gather-message
+    # kernel's forms (`repro_torch.kernels.gather_messages`): "copy" (the
+    # source's scatter data), "add_prop" (plus the edge property
+    # `needs_edge_prop`) or "add_one".  None: another message.  The dense
+    # scan of a scalar program that declares one runs the kernel; the
+    # shipped programs take `scatter_msg` from the same declaration
+    # (`gather_messages.form_messages`).
+    message: Optional[str] = None
 
     @property
     def monotone(self) -> bool:
