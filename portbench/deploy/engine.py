@@ -9,6 +9,14 @@ from collections import Counter, deque
 WARMUP_JOBS = 2       # finished jobs of each kind before the window opens
 
 
+def ingress(graph, cfg: dict, seed: int, device):
+    """The whole graph's `DevicePartition` on `device`; `seed` changes
+    nothing here."""
+    del cfg, seed
+    from repro_torch.core.engine import DevicePartition
+    return DevicePartition.from_graph(graph, device=device)
+
+
 class Deployment:
     def __init__(self, cfg: dict, part, kinds: dict, tracer):
         from repro_torch.core import frontier

@@ -7,6 +7,11 @@ traffic mix in `traffic/<mix>.json`, the deployment the configuration
 names in `deploy/<deployment>.py`, each query kind of the mix in
 `queries/<kind>.py`, and each metric in `metrics/<metric>.py`.  This file
 names none of them.
+
+The harness draws the inputs and builds the host graph; the deployment
+builds its own device state from that graph (its `ingress`: one partition
+of the whole graph, shards, whatever it serves from), and the harness
+times that call.
 """
 from __future__ import annotations
 
@@ -93,8 +98,13 @@ def resolve(spec: dict, name: str) -> dict:
     metrics = {m["name"]: plugin("metrics", m["name"])
                for sec in ("end_to_end", "per_layer")
                for m in cell_metrics(spec, name, sec)}
+    deploy = plugin("deploy", cfg["deployment"])
+    if not callable(getattr(deploy, "ingress", None)):
+        path = (HERE / "deploy" / f"{cfg['deployment']}.py").relative_to(ROOT)
+        raise CellError(f"the deployment {path} defines no "
+                        f"ingress(graph, cfg, seed, device)")
     return {"cell": cell, "conf": conf, "cfg": cfg, "mix": mix,
-            "deploy": plugin("deploy", cfg["deployment"]),
+            "deploy": deploy,
             "kinds": {k: plugin("queries", k) for k in mix["kinds"]},
             "metrics": metrics}
 
@@ -334,17 +344,16 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
-        from repro_torch.core.engine import DevicePartition
         from repro_torch.graph.structures import Graph
         # the port gets copies; the reference reads `edges` after the window
         graph = Graph(edges.num_vertices, edges.src.copy(), edges.dst.copy(),
                       {"weight": edges.weight.copy()})
         t0 = clock()
-        part = DevicePartition.from_graph(graph, device=dev)
+        state = parts["deploy"].ingress(graph, cfg, seed, dev)
         sync(dev)
         ingress_seconds = clock() - t0
         del graph
-        dep = parts["deploy"].Deployment(cfg, part, parts["kinds"], tracer)
+        dep = parts["deploy"].Deployment(cfg, state, parts["kinds"], tracer)
         load = loadgen.ClosedLoop(parts["mix"], keys, seed,
                                   {k: m.TAKES_ROOT
                                    for k, m in parts["kinds"].items()})
@@ -365,7 +374,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     finally:
         tracer.close()
     dep.close()
-    del dep, part
+    del dep, state
     if cuda:
         torch.cuda.empty_cache()
     require_no_jax("after the window")

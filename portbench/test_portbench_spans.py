@@ -10,7 +10,7 @@ from portbench import harness, port_spans, tracing
 
 CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
 NEW = ("loop_idle_ms_per_superstep", "host_reads_per_superstep",
-       "message_ms_per_query", "ingress_csr_s")
+       "ingress_csr_s")
 MAIN = 7
 
 
@@ -159,7 +159,6 @@ def test_traced_cpu_run_reads_the_port(cell):
     assert tuple(phases) == ("fill", "sort_dst", "csr", "upload")
     # the device's readers find no device operation on the CPU
     assert "loop_idle_ms_per_superstep" not in got
-    assert "message_ms_per_query" not in got
     spans = res["record"].snapshots["loop_idle_ms_per_superstep"][1]
     steps = sum(r.supersteps for r in res["record"].completed)
     assert spans.counts["gre.superstep"] >= steps > 0
